@@ -1,0 +1,80 @@
+"""Carry scheduler state between the JAX reference and the PyTorch port.
+
+For this system the "weights" are the scheduler's state and constants.  The
+constants (Γ, the pole bank, η) are derived from `FINGERPRINT` on both sides
+bit for bit; the state crosses over leaf by leaf through numpy:
+
+  * `state_from_numpy` builds a port `SchedulerState` from the reference's
+    `SchedulerState` (any object with its field names whose leaves are
+    numpy-convertible — e.g. ``jax.device_get(state)``);
+  * `state_to_numpy` turns a port state back into the same structure with
+    numpy leaves (the reference's field names and dtypes), from which the
+    reference's own NamedTuples can be rebuilt;
+  * `telemetry_from_numpy` builds a port `FleetTelemetry` from a reference
+    record or flush dict, for comparisons.
+
+The shared clocks (``step``, filtration ``ptr``) stay on the host.  Leaves
+of the reference's unported planes (per-package draws, the degraded
+fallback, operator modes) must be None.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.pdu_gate import Filtration, FiltrationStats
+from repro_torch.core.scheduler import SchedulerState
+from repro_torch.fleet.engine import FleetTelemetry
+
+_UNPORTED = ("pkg", "rho_last", "stale", "degraded", "ctrl_mode")
+
+
+def _clock(x) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+
+def state_from_numpy(ref_state, device=None) -> SchedulerState:
+    """Port `SchedulerState` from the reference's state leaves."""
+    dev = resolve_device(device)
+    for f in _UNPORTED:
+        if getattr(ref_state, f, None) is not None:
+            raise NotImplementedError(
+                f"state leaf {f!r} belongs to a plane not ported yet "
+                f"(ROADMAP queue 1 step 5)")
+    leaf = lambda x: torch.tensor(np.asarray(x), device=dev)
+    ft = ref_state.filtration
+    if hasattr(ft, "wsum"):
+        filtration = FiltrationStats(buf=leaf(ft.buf), ptr=_clock(ft.ptr),
+                                     wsum=leaf(ft.wsum), csum=leaf(ft.csum),
+                                     rsum=leaf(ft.rsum))
+    else:
+        filtration = Filtration(buf=leaf(ft.buf), ptr=_clock(ft.ptr))
+    throttled = ref_state.throttled
+    return SchedulerState(
+        thermal=leaf(ref_state.thermal), filtration=filtration,
+        freq=leaf(ref_state.freq), step=_clock(ref_state.step),
+        events=leaf(ref_state.events),
+        throttled=None if throttled is None else leaf(throttled))
+
+
+def state_to_numpy(state: SchedulerState) -> SchedulerState:
+    """The same structure with numpy leaves (int32 clocks, bool latch)."""
+    leaf = lambda x: None if x is None else x.detach().cpu().numpy()
+    ft = state.filtration
+    conv = {f: leaf(getattr(ft, f)) for f in ft._fields}
+    conv["ptr"] = np.asarray(int(ft.ptr), np.int32)
+    return state._replace(
+        thermal=leaf(state.thermal), filtration=type(ft)(**conv),
+        freq=leaf(state.freq), step=np.asarray(int(state.step), np.int32),
+        events=leaf(state.events), throttled=leaf(state.throttled))
+
+
+def telemetry_from_numpy(ref_telem, device=None) -> FleetTelemetry:
+    """Port `FleetTelemetry` from a reference record (its NamedTuple with
+    numpy leaves, or the host dict `as_dict` and `stream` return)."""
+    dev = resolve_device(device)
+    get = (ref_telem.__getitem__ if isinstance(ref_telem, dict)
+           else lambda f: getattr(ref_telem, f))
+    return FleetTelemetry(**{f: torch.tensor(np.asarray(get(f)), device=dev)
+                             for f in FleetTelemetry._fields})

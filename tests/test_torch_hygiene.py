@@ -1,0 +1,83 @@
+"""PyTorch port, packaging rules: the port and chip_smoke.py import neither
+JAX nor the JAX package, and chip_smoke.py refuses to run without a card or
+outside a checkout."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            mods.add(node.args[0].value)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = sorted(m for m in _imported_modules(path)
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_every_module_of_the_slice():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    for mod in ("core/fingerprint.py", "core/density.py", "core/coupling.py",
+                "core/thermal.py", "core/pdu_gate.py", "core/plant.py",
+                "core/scheduler.py", "configs/base.py",
+                "kernels/fleet_step.py", "kernels/_build.py",
+                "fleet/backends/base.py", "fleet/backends/broadcast.py",
+                "fleet/backends/fused.py", "fleet/engine.py",
+                "fleet/ingest.py", "launch/serve.py", "convert.py"):
+        assert mod in names, mod
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "fleet_step.cu").is_file()
+
+
+def _run(cwd: Path) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(cwd / "chip_smoke.py")],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    r = _run(ROOT)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    assert "cuda" in (r.stdout + r.stderr).lower()
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run(tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_kernel_sources_use_pow_not_cbrt():
+    """The law's 1/exponent power is pow, as in the reference (a cube-root
+    special form rounds differently)."""
+    for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"):
+        assert "cbrt" not in src.read_text().replace("never cbrt", ""), src
