@@ -16,6 +16,14 @@ bit for bit; the state crosses over leaf by leaf through numpy:
 The shared clocks (``step``, filtration ``ptr``) stay on the host.  Leaves
 of the reference's unported planes (per-package draws, the degraded
 fallback, operator modes) must be None.
+
+The plant ladder's constants cross over the same way:
+
+  * `poles_from_numpy` — a reference `PoleParams` bank (the paper's, or a
+    fitted ROM's with per-tile gains [n_tiles, n_poles]) as the port's;
+  * `grid_from_numpy` — a port `GridPlant` running on the reference
+    `GridPlant`'s operators (ĝ, deg, the adjacencies) and control
+    constants (η, ΣG, eigen-decays) instead of its own derivation.
 """
 from __future__ import annotations
 
@@ -23,8 +31,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.fingerprint import FINGERPRINT
 from repro_torch.core.pdu_gate import Filtration, FiltrationStats
+from repro_torch.core.plant import GridPlant
 from repro_torch.core.scheduler import SchedulerState
+from repro_torch.core.thermal import PoleParams
 from repro_torch.fleet.engine import FleetTelemetry
 
 _UNPORTED = ("pkg", "rho_last", "stale", "degraded", "ctrl_mode")
@@ -78,3 +89,34 @@ def telemetry_from_numpy(ref_telem, device=None) -> FleetTelemetry:
            else lambda f: getattr(ref_telem, f))
     return FleetTelemetry(**{f: torch.tensor(np.asarray(get(f)), device=dev)
                              for f in FleetTelemetry._fields})
+
+
+def poles_from_numpy(ref_poles) -> PoleParams:
+    """Port `PoleParams` (numpy f32) from the reference's bank: decay
+    [n_poles], gain [n_poles] or per tile [n_tiles, n_poles]."""
+    decay = np.asarray(ref_poles.decay, np.float32)
+    gain = np.asarray(ref_poles.gain, np.float32)
+    if decay.ndim != 1 or gain.shape[-1] != decay.shape[0] or gain.ndim > 2:
+        raise ValueError(f"pole bank shapes decay {decay.shape}, gain "
+                         f"{gain.shape}: want [n_poles] and [n_poles] or "
+                         f"[n_tiles, n_poles]")
+    return PoleParams(decay=decay.copy(), gain=gain.copy())
+
+
+def grid_from_numpy(ref_grid, cfg, device=None) -> GridPlant:
+    """Port `GridPlant` for ``cfg`` carrying the reference plant's operators
+    and control constants (any object with its attribute names whose
+    values are numpy-convertible)."""
+    plant = GridPlant(cfg, FINGERPRINT, device=resolve_device(device))
+    if (plant.gy, plant.W) != tuple(np.shape(ref_grid.ghat)):
+        raise ValueError(f"reference grid is {np.shape(ref_grid.ghat)}, the "
+                         f"config gives {(plant.gy, plant.W)}")
+    plant.set_operators(ghat=ref_grid.ghat, deg=ref_grid.deg,
+                        adj_h=ref_grid.adj_h, adj_v=ref_grid.adj_v)
+    plant.r = np.float32(ref_grid.r)
+    plant.kappa = np.float32(ref_grid.kappa)
+    plant.rth = np.float32(ref_grid.rth)
+    plant.eigen_decay = np.asarray(ref_grid.eigen_decay).copy()
+    plant.eta = float(ref_grid.eta)
+    plant.gain_sum = np.float32(ref_grid.gain_sum)
+    return plant

@@ -16,8 +16,10 @@ State contract:
     decision.
 
 Modes ported: ``v24``, ``reactive``, ``reactive_poll`` and ``off``, with
-both ``filtration_impl`` values.  ``heterogeneous``, ``degraded_fallback``
-and ``mixed_mode`` raise until they are ported (ROADMAP queue 1 step 5).
+both ``filtration_impl`` values, on every plant rung (``pole``, ``grid``,
+``rom``; the plant supplies the state, its step and η/ΣG).
+``heterogeneous``, ``degraded_fallback`` and ``mixed_mode`` raise until they
+are ported (ROADMAP queue 1 step 5).
 """
 from __future__ import annotations
 
@@ -63,9 +65,16 @@ class SchedulerConfig:
     poll_interval_ms: float = 25.0 # homogeneous polling period
     degraded_fallback: bool = False  # in-graph stale-hint fallback — not ported
     mixed_mode: bool = False       # operator per-lane mode pins — not ported
-    # thermal-plant fidelity rung (`repro_torch.core.plant`): only "pole" is
-    # ported; "grid" and "rom" (and their knobs) come with queue 1 step 6
+    # thermal-plant fidelity rung (`repro_torch.core.plant`): "pole" is the
+    # paper's bank, "grid" the spatial RC-grid ground truth, "rom" the
+    # reduced-order bank fit from it
     plant: str = "pole"
+    grid_cells: int = 8            # cells per tile edge (gy = gx patches)
+    grid_kappa: float = 0.35       # lateral / vertical conductance ratio
+    grid_contrast: float = 0.5     # bridge-shadow g_v reduction (§5.2 EMIB)
+    grid_substeps: int = 1         # Euler substeps per scheduler step
+    rom_poles: int = 3             # fitted ROM bank size
+    rom_fit_steps: int = 2048      # step-response window the fit regresses
 
     @property
     def lookahead_ms(self) -> float:
@@ -132,11 +141,14 @@ class ThermalScheduler:
                 coupling_matrix(cfg.n_tiles)).to(self.device)
         self.eta = self.plant.eta
         # the control law's f32 constants: −(1 − η), 1/(η·ΣG) (an f32
-        # product and quotient as in the reference) and the 1/exponent power
+        # product and quotient as in the reference; per tile for a fitted
+        # ROM, whose ΣG is [n_tiles]) and the 1/exponent power
         self.neg_one_m_eta = float(-np.float32(1.0 - self.eta))
         self.inv_exp = float(np.float32(1.0 / cfg.power_exponent))
-        self.inv_eta_gain = float(np.float32(1.0) / (
-            np.float32(self.eta) * np.float32(self.plant.gain_sum)))
+        inv = np.float32(1.0) / (np.float32(self.eta) * np.asarray(
+            self.plant.gain_sum, np.float32))
+        self.inv_eta_gain = (float(inv) if inv.ndim == 0 else
+                             torch.as_tensor(inv, device=self.device))
         # reactive_poll ramp-back per step
         self.ramp = (1.0 - cfg.throttle_level) / max(
             int(cfg.recover_ms / cfg.step_ms), 1)

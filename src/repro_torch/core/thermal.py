@@ -8,7 +8,9 @@ pole:
 
 with ΔT = Σ_poles x.  The discretised constants are numpy f32 (derived with
 the reference's numpy ops, so bit-identical to it); `step` moves them to the
-state's device.
+state's device.  `simulate` is the plain whole-trace scan (the oracle the
+`thermal_conv` kernel is held against); `direct_convolution` the O(T²)
+literal convolution that checks the recurrence.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.coupling import apply_coupling
 from repro_torch.core.fingerprint import FINGERPRINT, Fingerprint
 
 
@@ -84,3 +87,55 @@ def delta_t(state: torch.Tensor) -> torch.Tensor:
 def steady_state_dt(poles: PoleParams, power_w) -> torch.Tensor:
     """Analytic steady state: ΔT_ss = Rth · P (all poles fully charged)."""
     return torch.as_tensor(poles.gain, dtype=torch.float32).sum() * power_w
+
+
+def simulate(poles: PoleParams, power_trace, gamma: torch.Tensor | None = None,
+             state0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the thermal convolution over a power trace.
+
+    power_trace: [T, n_tiles] (or [T]) dissipated power per tile per tick
+    [W]; ``gamma``: optional [n_tiles, n_tiles] coupling matrix (effective
+    power = Γ·P, identity if None); ``state0``: optional initial pole
+    state.  Returns (ΔT trace [T, n_tiles], final state [n_tiles, n_poles]).
+    """
+    power_trace = torch.as_tensor(power_trace, dtype=torch.float32)
+    if power_trace.ndim == 1:
+        power_trace = power_trace[:, None]
+    if state0 is None:
+        state0 = init_state(poles, power_trace.shape[1],
+                            device=power_trace.device)
+    if gamma is not None:
+        power_trace = apply_coupling(gamma, power_trace)
+    state, dts = state0, []
+    for p in power_trace:
+        state = step(poles, state, p)
+        dts.append(delta_t(state))
+    return torch.stack(dts), state
+
+
+def direct_convolution(poles: PoleParams, power_trace,
+                       dt_ms: float = 1.0) -> torch.Tensor:
+    """O(T²) literal evaluation of the convolution integral — oracle only.
+
+    ΔT[k] sums the ZOH-exact per-interval weights G·(1−a)·a^(k−u) over
+    u ≤ k; tests use it to verify the scan recurrence.
+    """
+    power_trace = torch.as_tensor(power_trace, dtype=torch.float32)
+    if power_trace.ndim == 1:
+        power_trace = power_trace[:, None]
+    k = torch.arange(power_trace.shape[0], device=power_trace.device)
+    lag = k[:, None] - k[None, :]                       # [T, T]
+    out = torch.zeros_like(power_trace)
+    for a, g in zip(torch.as_tensor(poles.decay, dtype=torch.float32),
+                    torch.as_tensor(poles.gain, dtype=torch.float32)):
+        w = torch.where(lag >= 0, g * (1 - a) * a ** lag.clamp(min=0), 0.0)
+        out = out + w @ power_trace
+    return out
+
+
+def step_response(poles: PoleParams, n_steps: int,
+                  power_w: float = 1.0) -> torch.Tensor:
+    """ΔT trace for a unit power step — τ validation: 63.2 % at t = τ (§4.1)."""
+    dts, _ = simulate(poles, torch.full((n_steps, 1), power_w))
+    return dts[:, 0]

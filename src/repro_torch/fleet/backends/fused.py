@@ -20,7 +20,10 @@ Caller contract kept from the reference:
   * temp/freq traces are returned as [T, n, tiles] views of the kernel's
     [T, tiles, n] planes;
   * active-lane masks never enter the kernel: the engine applies them in its
-    telemetry reductions over the traces.
+    telemetry reductions over the traces;
+  * a grid-family plant has no pole-bank plane: the backend drops
+    `run_block` and the engine steps it through the per-step path.  A
+    fitted ROM needs the kernel's per-tile pole rows and raises.
 """
 from __future__ import annotations
 
@@ -40,6 +43,20 @@ class FusedBackend(FleetBackend):
 
     def __init__(self, sched: ThermalScheduler):
         super().__init__(sched)
+        plant = sched.plant
+        if plant.family != "pole":
+            # a grid state cannot live in the kernel's pole-bank plane:
+            # shadow the method with None, so the engine's dispatch
+            # (`backend_impl.run_block is not None`) runs the per-step path
+            # for this backend, as the reference does
+            self.run_block = None
+            self.params = None
+            return
+        if plant.name != "pole":
+            raise NotImplementedError(
+                f"plant={plant.name!r} on the fused backend needs the "
+                f"kernel's per-tile pole rows (het rows), not ported yet: "
+                f"ROADMAP queue 1 step 5; run it on 'broadcast'")
         c, fp = sched.cfg, sched.fp
         self.params = FleetStepParams(
             window=c.filtration_window,

@@ -20,8 +20,10 @@ without a card unless ``--device cpu`` is given.
 
 Not ported yet, each exits non-zero naming its ROADMAP step: the model wave
 loop (the default without ``--stream``), ``--montecarlo``, ``--serve``,
-``--chaos`` and ``--distributed``; ``--node`` other than ``base`` and
-``--plant`` other than ``pole`` raise from the scheduler.
+``--chaos`` and ``--distributed``; ``--node`` other than ``base``.
+``--plant grid|rom`` streams through the per-step path of ``broadcast``
+(``grid`` also on ``fused``, which hands it to that path; ``rom`` on
+``fused`` raises, ROADMAP queue 1 step 5).
 """
 from __future__ import annotations
 
@@ -107,8 +109,7 @@ def main(argv=None):
                     help="filtration fast path (O(1) sliding stats) or the "
                          "ring-buffer oracle")
     ap.add_argument("--plant", default="pole", choices=available_plants(),
-                    help="thermal-plant fidelity rung (only 'pole' is "
-                         "ported)")
+                    help="thermal-plant fidelity rung")
     ap.add_argument("--node", default="base",
                     help="technology-node parameter bank (only 'base' is "
                          "ported)")

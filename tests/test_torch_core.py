@@ -226,8 +226,8 @@ def test_scheduler_update_matches_reference(mode, n_tiles, impl):
 
 @pytest.mark.parametrize("kw,step", [
     (dict(heterogeneous=True), 5), (dict(degraded_fallback=True), 5),
-    (dict(mixed_mode=True), 5), (dict(plant="grid"), 6),
-    (dict(plant="rom"), 6)])
+    (dict(mixed_mode=True), 5), (dict(plant="grid", heterogeneous=True), 5),
+    (dict(plant="rom", heterogeneous=True), 5)])
 def test_unported_scheduler_features_raise(kw, step):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 step {step}"):

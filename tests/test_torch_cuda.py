@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the hand-written `fleet_step` CUDA kernel against
-its plain PyTorch version, and the fused engine against the broadcast engine.
+"""PyTorch port on the card: the hand-written CUDA kernels (`fleet_step`,
+`thermal_conv`, `grid_conv`) against their plain PyTorch versions, and the
+fused engine against the broadcast engine.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with the
 reason "needs CUDA" elsewhere.  Imports nothing of JAX, so it also runs
@@ -15,11 +16,17 @@ import numpy as np
 
 from torch_parity import TOL, assert_telemetry_close, np_, trace
 
+from repro_torch.core.coupling import (coupling_matrix, ponte_vecchio_gamma,
+                                       row_normalise)
+from repro_torch.core.fingerprint import FINGERPRINT
 from repro_torch.core.pdu_gate import exact_stats
+from repro_torch.core.plant import GridPlant
+from repro_torch.core.thermal import two_pole
 from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
 from repro_torch.fleet import FleetEngine, chunk_source, stream
 from repro_torch.fleet.backends.fused import FusedBackend
 from repro_torch.kernels import fleet_step as tfs
+from repro_torch.kernels import thermal_conv as ttc
 
 MODES = ["v24", "reactive", "reactive_poll", "off"]
 
@@ -89,3 +96,91 @@ def test_cuda_stream_launches_once_per_flush(cuda):
     assert tfs.fleet_step.launches - before == stats.flushes == 4
     assert stats.host_syncs == stats.flushes
     assert all(np.isfinite(list(d.values())).all() for d in flushed)
+
+
+def _gamma(n, device):
+    g = ponte_vecchio_gamma() if n == 47 else coupling_matrix(
+        n, cols=4 if n == 8 else None)
+    return row_normalise(g).to(device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(8, 4000), (47, 600), (100, 777),
+                                 (512, 300)])
+def test_cuda_thermal_conv_matches_plain_version(cuda, n, t):
+    g = torch.Generator().manual_seed(n)
+    power = (80.0 + 40.0 * torch.rand((t, n), generator=g)).to(cuda)
+    state0 = (20.0 * torch.rand((n, 2), generator=g)).to(cuda)
+    poles = two_pole()
+    gamma = _gamma(n, cuda)
+    before = ttc.thermal_conv.launches
+    out = ttc.thermal_conv(power, gamma, poles.decay, poles.gain, state0)
+    torch.cuda.synchronize()
+    assert ttc.thermal_conv.launches == before + 1
+    ref = ttc.thermal_conv_reference(power, gamma, poles.decay, poles.gain,
+                                     state0)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(np_(a), np_(b), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_thermal_conv_state_carry(cuda):
+    g = torch.Generator().manual_seed(5)
+    power = (80.0 + 40.0 * torch.rand((500, 47), generator=g)).to(cuda)
+    poles, gamma = two_pole(), _gamma(47, cuda)
+    full = ttc.thermal_conv(power, gamma, poles.decay, poles.gain)
+    a = ttc.thermal_conv(power[:233].contiguous(), gamma, poles.decay,
+                         poles.gain)
+    b = ttc.thermal_conv(power[233:].contiguous(), gamma, poles.decay,
+                         poles.gain, a[1])
+    np.testing.assert_allclose(np_(torch.cat([a[0], b[0]])), np_(full[0]),
+                               **TOL)
+    np.testing.assert_allclose(np_(b[1]), np_(full[1]), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,substeps,contrast", [
+    (1, 1, 0.5), (2, 2, 0.5), (47, 1, 0.0), (47, 2, 0.5)])
+def test_cuda_grid_conv_matches_plain_version(cuda, nt, substeps, contrast):
+    plant = GridPlant(SchedulerConfig(n_tiles=nt, plant="grid",
+                                      grid_substeps=substeps,
+                                      grid_contrast=contrast),
+                      FINGERPRINT, device=cuda)
+    g = torch.Generator().manual_seed(nt)
+    power = (80.0 + 40.0 * torch.rand((300, nt), generator=g)).to(cuda)
+    state0 = (10.0 * torch.rand((plant.gy, plant.W), generator=g)).to(cuda)
+    before = ttc.grid_conv.launches
+    out = plant.simulate(power, state0)
+    torch.cuda.synchronize()
+    assert ttc.grid_conv.launches == before + 1
+    ref = ttc.grid_conv_reference(
+        power, plant.adj_h, plant.adj_v, plant.deg, plant.ghat, plant.inject,
+        plant.readout, state0, r=float(plant.r), kappa=float(plant.kappa),
+        substeps=plant.substeps)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(np_(a), np_(b), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", range(2, 17))
+def test_cuda_grid_conv_every_patch_edge(cuda, cells):
+    """Every patch edge `grid_conv.cu` instantiates (2..16) against the
+    plain version, at 5 tiles: 32 // cells tiles share a warp, so the edges
+    that do not divide 32 leave masked lanes, and most leave a partly
+    filled last warp."""
+    plant = GridPlant(SchedulerConfig(n_tiles=5, plant="grid",
+                                      grid_cells=cells),
+                      FINGERPRINT, device=cuda)
+    g = torch.Generator().manual_seed(cells)
+    power = (80.0 + 40.0 * torch.rand((300, 5), generator=g)).to(cuda)
+    state0 = (10.0 * torch.rand((plant.gy, plant.W), generator=g)).to(cuda)
+    before = ttc.grid_conv.launches
+    out = plant.simulate(power, state0)
+    torch.cuda.synchronize()
+    assert ttc.grid_conv.launches == before + 1
+    ref = ttc.grid_conv_reference(
+        power, plant.adj_h, plant.adj_v, plant.deg, plant.ghat, plant.inject,
+        plant.readout, state0, r=float(plant.r), kappa=float(plant.kappa),
+        substeps=plant.substeps)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(np_(a), np_(b), **TOL)

@@ -30,7 +30,8 @@ def _imported_modules(path: Path) -> set[str]:
     return mods
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
@@ -47,10 +48,15 @@ def test_port_has_every_module_of_the_slice():
                 "kernels/fleet_step.py", "kernels/_build.py",
                 "fleet/backends/base.py", "fleet/backends/broadcast.py",
                 "fleet/backends/fused.py", "fleet/engine.py",
-                "fleet/ingest.py", "launch/serve.py", "convert.py"):
+                "fleet/ingest.py", "launch/serve.py", "convert.py",
+                "kernels/thermal_conv.py", "kernels/ops.py",
+                "core/workload.py", "core/dvfs.py", "core/cpo.py",
+                "core/hbm.py", "core/serdes.py", "core/dataset90k.py",
+                "core/telemetry.py"):
         assert mod in names, mod
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-            / "fleet_step.cu").is_file()
+    for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / src).is_file(), src
 
 
 def _run(cwd: Path) -> subprocess.CompletedProcess:
@@ -81,3 +87,12 @@ def test_kernel_sources_use_pow_not_cbrt():
     special form rounds differently)."""
     for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"):
         assert "cbrt" not in src.read_text().replace("never cbrt", ""), src
+
+
+def test_kernel_sources_use_no_library_or_tensor_core_product():
+    """The kernels compute their products themselves in f32 on the CUDA
+    cores: no cuBLAS / cuDNN call, no tensor-core (TF32) instruction."""
+    for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"):
+        text = src.read_text().lower()
+        for word in ("cublas", "cudnn", "wmma", "mma.sync", "wgmma", "tf32"):
+            assert word not in text.replace("no tf32", ""), (src.name, word)

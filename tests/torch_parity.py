@@ -89,8 +89,69 @@ def assert_state_close(ref, port, where: str = "",
                                       err_msg=f"{where} throttled")
 
 
+def lane4_coupling(gamma, p):
+    """Γ·p in the order XLA/CPU's dot takes at the fleet's shapes (see
+    `xla_dot_order`): the sources j ≡ k (mod 4) below 4·⌊n/4⌋ summed into
+    lane k by f32 FMAs, the lanes added as (L0 + L1) + (L2 + L3), then the
+    n mod 4 trailing sources as separately rounded products and adds, added
+    last.  A diagnostic for `drift_probe`; the port keeps one FMA chain."""
+    import torch
+
+    from repro_torch import fma_f32
+
+    n = gamma.shape[1]
+    q = n - n % 4
+    lanes = []
+    for k in range(min(4, q)):
+        acc = torch.zeros_like(p)
+        for j in range(k, q, 4):
+            acc = fma_f32(gamma[:, j], p[..., j:j + 1], acc)
+        lanes.append(acc)
+    rem = None
+    for j in range(q, n):
+        x = gamma[:, j] * p[..., j:j + 1]
+        rem = x if rem is None else rem + x
+    if not lanes:
+        return rem
+    tot = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    return tot if rem is None else tot + rem
+
+
+def xla_dot_order(rows: int | None, n: int, seed: int = 0) -> str:
+    """The summation order XLA/CPU's compiled dot takes for Γ·p, as the
+    reference's engines spell it (``einsum("ij,...j->...i")`` on [rows, n];
+    ``rows=None``: ``gamma @ p`` on a 1-D p, as its DVFS loop does).
+
+    Returns the name of the candidate that reproduces the reference's f32
+    bits on random inputs and a dense random Γ: "fma_chain" (the port's
+    `apply_coupling`), "lane4" (`lane4_coupling`) or "other".
+    """
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro_torch.core.coupling import apply_coupling
+
+    rng = np.random.default_rng(seed)
+    g = rng.random((n, n), dtype=np.float32)
+    x = (300.0 * rng.random((rows or 1, n), dtype=np.float32)).astype(
+        np.float32)
+    gj = jnp.asarray(g)
+    if rows is None:
+        want = np.asarray(jax.jit(lambda v: gj @ v)(x[0]))[None]
+    else:
+        want = np.asarray(jax.jit(
+            lambda v: jnp.einsum("ij,...j->...i", gj, v))(x))
+    for name, fn in (("fma_chain", apply_coupling), ("lane4", lane4_coupling)):
+        if np.array_equal(np_(fn(torch.from_numpy(g), torch.from_numpy(x))),
+                          want):
+            return name
+    return "other"
+
+
 def drift_probe(steps: int = 60, n: int = 40, tiles: int = 4,
-                seed: int = 7) -> list[tuple[int, float, float, float, float]]:
+                seed: int = 7, coupling=None
+                ) -> list[tuple[int, float, float, float, float]]:
     """Per-step divergence on a heavily throttled v24 trace, stepped one
     step at a time: (step, max |Δfreq| and |Δthrottled_mtps| of the port's
     broadcast engine vs the reference's broadcast engine, and the same two
@@ -99,15 +160,28 @@ def drift_probe(steps: int = 60, n: int = 40, tiles: int = 4,
     Run as ``PYTHONPATH=src python tests/torch_parity.py``.  It shows the
     knife edge of the coupled law (ROADMAP queue 3): where `budget − neigh`
     cancels, the order of Γ's summation alone moves freq past 1e-5, for the
-    reference's two engines as for the port.
+    reference's two engines as for the port.  ``coupling`` replaces the
+    port's `apply_coupling` for the run (e.g. `lane4_coupling`).
     """
     import jax.numpy as jnp
+
+    from repro_torch.core import dvfs, pdu_gate, scheduler, thermal
 
     from repro.core.scheduler import SchedulerConfig as JCfg
     from repro.fleet import FleetEngine as JEngine
     from repro_torch.core.scheduler import SchedulerConfig as TCfg
     from repro_torch.fleet import FleetEngine as TEngine
 
+    if coupling is not None:
+        users = (scheduler, pdu_gate, dvfs, thermal)
+        saved = [m.apply_coupling for m in users]
+        for m in users:
+            m.apply_coupling = coupling
+        try:
+            return drift_probe(steps, n, tiles, seed)
+        finally:
+            for m, f in zip(users, saved):
+                m.apply_coupling = f
     tr = trace(steps, n, tiles, seed=seed)
     jb = JEngine(JCfg(n_tiles=tiles), backend="broadcast")
     jf = JEngine(JCfg(n_tiles=tiles), backend="fused")
@@ -127,7 +201,24 @@ def drift_probe(steps: int = 60, n: int = 40, tiles: int = 4,
     return rows
 
 
+def _print_dot_orders() -> None:
+    print("XLA/CPU dot order for Γ·p (rows = packages; 1-D = gamma @ p):")
+    for n in (3, 4, 8, 47, 100, 512):
+        cells = [f"{r or '1-D'}: {xla_dot_order(r, n)}"
+                 for r in (None, 1, 4, 8, 40, 1000)]
+        print(f"  n={n:3d}  " + ", ".join(cells))
+    m = np.asarray(drift_probe(coupling=lane4_coupling))[:, 1:].max(axis=0)
+    print(f"drift_probe with lane4_coupling in the port: max |dfreq| "
+          f"{m[0]:.3e}, |dthrottled| {m[1]:.3e} (reference fused vs "
+          f"broadcast {m[2]:.3e}, {m[3]:.3e})")
+
+
 if __name__ == "__main__":
+    import sys
+
+    if "--dot-order" in sys.argv:
+        _print_dot_orders()
+        raise SystemExit(0)
     rows = drift_probe()
     print("step  port-ref |dfreq|  port-ref |dthrottled|  "
           "ref fused-bcast |dfreq|  ref fused-bcast |dthrottled|")
