@@ -48,6 +48,28 @@ Phase F  the plant ladder in the fleet (per-step path): 47-tile v24 fleets
          --plant rom --fleet-backend broadcast --fleet 4096; the 8-tile
          reactive vs V7.0 DVFS comparison (released compute) and the
          Appendix-B dataset's R², both made and run on the card.
+Phase G  the model-serving kernels against their plain versions on the
+         card, in f32 (flash atol 2e-5, ssd atol 3e-5: the reference's own
+         bounds) and bf16: `flash_attention` on the reference test's sweep,
+         Zamba2-7B's [8, 1,024, 32, 112] and Gemma-2B's [8, 1,024, 8 on 1,
+         256] prefill shapes, a ragged T = 1,000, window 128, a q_offset;
+         `ssd` on the reference test's sweep (mamba and rwkv regimes, u,
+         include_current both ways, an h0), two chained halves against one
+         run, and Zamba2-7B's prefill shape [8, 1,024, 112, 64 / 64] with
+         f32 d and b, bf16 c and x.  Each timed at its main-path shape beside
+         its bound and its plain version; flash also beside
+         scaled_dot_product_attention (library_ms, a yardstick only).
+Phase H  the serving slice end to end at full width in bf16: `serve`
+         --arch zamba2-7b, then gemma-2b, --batch 8 --prompt-len 1024
+         --gen 32 --waves 3 --fleet 64 — exactly 81 ssd and 13 flash
+         launches per Zamba2-7B prefill, 18 flash per Gemma-2B prefill and
+         none in decode; a profiled prefill and decode step of each (device
+         time by kernel group, idle share).  Then, with no JAX on the card,
+         full-width correctness inside the port: Zamba2-7B in f32 (batch 2,
+         prompt 128) decoding position 128 equals the full forward's last
+         logits within 2e-4 × max|logit|, and its prefill on the kernels
+         equals the same prefill on the plain versions within 1e-4 of each
+         leaf's largest magnitude.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -68,18 +90,30 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores (the rates assume the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# bf16 on the tensor cores: the least time for work whose inputs are bf16
+PEAK_BF16_PER_S = 989e12
 # dependent-issue latencies ASSUMED (not measured) for the estimate of the
 # grid recurrence's dependence floor, printed beside its times but not in
 # the kernels line: an f32 add or multiply, and a warp shuffle, in SM cycles
 FP32_LATENCY_CYCLES = 4
 SHFL_LATENCY_CYCLES = 24
 TOL = dict(rtol=1e-5, atol=1e-5)
-KERNELS = ("fleet_step", "thermal_conv", "grid_conv")
+KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
+           "ssd")
 # full-width (tiles, steps) of the thermal kernels' main paths: the paper's
 # 90k-step dataset length at thermal_conv's datacenter width (N = 512, the
 # reference kernel's stated O(512)) and at the 47-tile Ponte-Vecchio grid
 THERMAL_FULL = (512, 90_000)
 GRID_FULL = (47, 90_000)
+# the serving slice's main path: each model's prefill shapes at --batch 8
+# --prompt-len 1024 (flash: B, T, H, KV, d; ssd: B, T, H, N, P), the serve
+# command, and the batch and prompt of the f32 decode-vs-forward check
+FLASH_MAIN = {"zamba2-7b": (8, 1024, 32, 32, 112),
+              "gemma-2b": (8, 1024, 8, 1, 256)}
+SSD_MAIN = (8, 1024, 112, 64, 64)
+SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
+              "--waves", "3", "--fleet", "64"]
+F32_CHECK = (2, 128)
 
 
 def fail(msg: str):
@@ -108,22 +142,27 @@ def event_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, what sets it) at the data-sheet peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+def bound(nbytes: float, ops: float,
+          peak_ops: float = PEAK_F32_PER_S) -> tuple[float, str]:
+    """(least ms the card could take, what sets it) at the data-sheet peaks
+    (operations at ``peak_ops``: f32, or bf16 where the inputs are bf16)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def max_err(out, ref, where: str) -> float:
-    """Kernel outputs vs plain outputs, each within rtol = atol = 1e-5."""
+def max_err(out, ref, where: str, rtol: float = TOL["rtol"],
+            atol: float = TOL["atol"]) -> float:
+    """Kernel outputs vs plain outputs, each within |Δ| ≤ atol + rtol·|plain|
+    (compared in f32), rtol = atol = 1e-5 unless given."""
     import torch
 
     err = 0.0
     for i, (a, b) in enumerate(zip(out, ref)):
+        a, b = a.float(), b.float()
         check(bool(torch.isfinite(a).all()), f"{where}: output {i} not finite")
         d = float((a - b).abs().max())
-        check(torch.allclose(a, b, **TOL),
+        check(torch.allclose(a, b, rtol=rtol, atol=atol),
               f"{where}: output {i} differs from the plain version by {d:.3e}")
         err = max(err, d)
     return err
@@ -376,6 +415,8 @@ def main() -> None:
     tc_entry = phase_d(dev)
     gc_entry = phase_e(dev)
     phase_f(dev, trace[peak * flush:(peak + 1) * flush])
+    fa_entry, ssd_entry = phase_g(dev)
+    phase_h(dev, fa_entry, ssd_entry)
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -391,7 +432,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, tc_entry, gc_entry]}))
+    }, tc_entry, gc_entry, fa_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -695,6 +736,340 @@ def phase_f(dev, window) -> None:
     check(abs(r2 - 0.9911) <= 0.002, f"dataset R^2 {r2} not 0.9911")
     print(f"[phaseF] Appendix-B dataset (90,000 steps, on the card): "
           f"alpha {a:.3f}, beta {b:.2f}, R^2 {r2:.5f}")
+
+def phase_g(dev) -> tuple[dict, dict]:
+    """`flash_attention` and `ssd`: kernel vs plain version, then timed at
+    the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as sm
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    # the reference's bounds (tests/test_kernels.py); a bf16 output is also
+    # allowed one bf16 rounding step of its f32 value (rtol 2^-7), since
+    # kernel and plain version may round a value on either side of a tie
+    flash_tol = {torch.float32: dict(atol=2e-5), bf16: dict(atol=2e-2)}
+    BF16_STEP = 2.0 ** -7
+
+    def qkv(B, Tq, Tk, H, KV, d, dtype):
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        return r(B, Tq, H, d), r(B, Tk, KV, d), r(B, Tk, KV, d)
+
+    f_err = 0.0
+    cases = [  # (B, Tq, Tk, H, KV, d, window, q_offset, what)
+        (2, 256, 256, 4, 2, 64, 0, 0, "sweep"),
+        (1, 256, 256, 8, 1, 128, 0, 0, "sweep MQA"),
+        (2, 512, 512, 4, 4, 64, 128, 0, "sweep window 128"),
+        (1, 128, 128, 2, 2, 256, 0, 0, "sweep head_dim 256"),
+        *((B, T, T, H, KV, d, 0, 0, f"{arch} prefill")
+          for arch, (B, T, H, KV, d) in FLASH_MAIN.items()),
+        (2, 1000, 1000, 4, 2, 112, 0, 0, "ragged T=1000"),
+        (2, 1000, 1000, 4, 2, 112, 128, 0, "ragged, window 128"),
+        (2, 512, 1024, 4, 2, 64, 0, 512, "q_offset 512"),
+        (1, 64, 200, 2, 1, 32, 8, 300, "window empties every row")]
+    for B, Tq, Tk, H, KV, d, w, off, what in cases:
+        for dtype in (torch.float32, bf16):
+            q, k, v = qkv(B, Tq, Tk, H, KV, d, dtype)
+            out = fa.flash_attention(q, k, v, window=w, q_offset=off)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_reference(q, k, v, window=w,
+                                               q_offset=off)
+            e = max_err((out,), (ref,), f"phase G flash {what} {dtype}",
+                        rtol=0.0, **flash_tol[dtype])
+            f_err = max(f_err, e)
+            print(f"[phaseG] flash_attention {what} q [{B}, {Tq}, {H}, {d}] "
+                  f"kv [{Tk}, {KV}] window {w} q_offset {off} {dtype}: "
+                  f"max_abs_err vs plain {e:.3e}")
+
+    def flash_times(B, T, H, KV, d):
+        q, k, v = qkv(B, T, T, H, KV, d, bf16)
+        ms = event_ms(lambda: fa.flash_attention(q, k, v), 10)
+        plain = timed(lambda: fa.flash_attention_reference(q, k, v))[1]
+        # the yardstick: one PyTorch call for the same function, its KV
+        # heads repeated and heads moved to dim 1 outside the timed call
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        lib = event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        e = max_err((lib_out.transpose(1, 2),), (fa.flash_attention(q, k, v),),
+                    f"SDPA vs kernel [{B}, {T}, {H}, {d}]", rtol=0.0,
+                    atol=2e-2)
+        cost = fa.flash_attention_cost(q, k, v)
+        b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
+        print(f"[phaseG] flash_attention [{B}, {T}, {H} on {KV}, {d}] bf16 "
+              f"causal: kernel {ms:.3f} ms (median of 10, CUDA events), "
+              f"plain {plain:.1f} ms (one run), scaled_dot_product_attention "
+              f"{lib:.3f} ms (|Δ| {e:.2e} vs the kernel); bound {b_ms:.4f} ms "
+              f"by {b_by} ({cost['bytes'] / 1e6:.1f} MB, "
+              f"{cost['ops'] / 1e9:.2f} GFLOP over {cost['pairs']} kept "
+              f"pairs per head, at the bf16 peak)")
+        return ms, plain, lib, b_ms, b_by
+
+    z = flash_times(*FLASH_MAIN["zamba2-7b"])
+    g = flash_times(*FLASH_MAIN["gemma-2b"])
+    fa_entry = {"name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:94",
+                "launches": None, "max_abs_err": f_err, "ms": z[0],
+                "plain_ms": z[1], "bound_ms": z[3], "bound_by": z[4],
+                "library_ms": z[2],
+                "shape": f"zamba2-7b {list(FLASH_MAIN['zamba2-7b'])}",
+                "ms_gemma": g[0], "plain_ms_gemma": g[1],
+                "bound_ms_gemma": g[3], "library_ms_gemma": g[2]}
+
+    def ssd_in(B, T, H, N, P, dec_min, dtypes=(torch.float32,) * 4):
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)
+        d = dec_min + (0.999 - dec_min) * torch.rand(
+            (B, T, H, N), generator=gen, device=dev)
+        return [t.to(dt) for t, dt in zip(
+            (d, 0.2 * r(B, T, H, N), r(B, T, H, P), 0.2 * r(B, T, H, N)),
+            dtypes)]
+
+    s_err = 0.0
+    for B, T, H, N, P, dec_min, inc, use_u, use_h0 in (
+            (2, 128, 2, 64, 64, 0.90, True, False, False),   # mamba2
+            (1, 256, 4, 32, 64, 0.80, False, True, False),   # rwkv, u
+            (2, 128, 2, 16, 32, 0.95, False, True, True),
+            (1, 64, 2, 64, 128, 0.70, True, False, True),    # strong decay
+            (2, 1000, 3, 64, 64, 0.90, True, False, True)):  # chunk 8
+        d, b, x, c = ssd_in(B, T, H, N, P, dec_min)
+        u = (0.1 * torch.randn((H, N), generator=gen, device=dev)
+             if use_u else None)
+        h0 = (torch.randn((B, H, N, P), generator=gen, device=dev)
+              if use_h0 else None)
+        out = sm.ssd(d, b, x, c, u=u, h0=h0, include_current=inc)
+        torch.cuda.synchronize()
+        ref = sm.ssd_reference(d, b, x, c, u=u, h0=h0,
+                               chunk=sm.chunk_for(T, 64),
+                               include_current=inc)
+        where = (f"ssd [{B}, {T}, {H}, {N}/{P}] decay >= {dec_min} "
+                 f"include_current {inc} u {use_u} h0 {use_h0}")
+        e = max_err(out, ref, f"phase G {where}", rtol=0.0, atol=3e-5)
+        s_err = max(s_err, e)
+        print(f"[phaseG] {where}: max_abs_err vs plain {e:.3e}, bit-exact "
+              f"{all(torch.equal(a, b) for a, b in zip(out, ref))}")
+    d, b, x, c = ssd_in(2, 512, 4, 64, 64, 0.85)
+    y, h = sm.ssd(d, b, x, c)
+    ya, ha = sm.ssd(*(t[:, :192].contiguous() for t in (d, b, x, c)))
+    yb, hb = sm.ssd(*(t[:, 192:].contiguous() for t in (d, b, x, c)), h0=ha)
+    e = max_err((torch.cat([ya, yb], 1), hb), (y, h),
+                "phase G ssd chained halves", rtol=0.0, atol=3e-5)
+    s_err = max(s_err, e)
+    print(f"[phaseG] ssd two chained halves (192 + 320 steps) vs one run: "
+          f"max_abs_err {e:.3e}")
+
+    # Zamba2-7B's prefill shape: f32 d and b, bf16 c and x, y in bf16
+    zd, zb, zx, zc = ssd_in(*SSD_MAIN, 0.9,
+                            (torch.float32, torch.float32, bf16, bf16))
+    out = sm.ssd(zd, zb, zx, zc)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed(lambda: sm.ssd_reference(zd, zb, zx, zc))
+    e = max(max_err(out[:1], ref[:1], "phase G ssd Zamba2-7B y",
+                    rtol=BF16_STEP, atol=3e-5),
+            max_err(out[1:], ref[1:], "phase G ssd Zamba2-7B hT", rtol=0.0,
+                    atol=3e-5))
+    s_err = max(s_err, e)
+    ms = event_ms(lambda: sm.ssd(zd, zb, zx, zc), 10)
+    cost = sm.ssd_cost(zd, zb, zx, zc)
+    b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
+    print(f"[phaseG] ssd Zamba2-7B prefill {list(SSD_MAIN)} (d, b f32; "
+          f"c, x bf16): max_abs_err vs plain {e:.3e} (y within one bf16 "
+          f"step); kernel {ms:.3f} ms (median of 10, CUDA events), plain "
+          f"{plain_ms:.1f} ms (one run); bound {b_ms:.4f} ms by {b_by} "
+          f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} GFLOP at "
+          f"the bf16 peak; {cost['ops'] / PEAK_F32_PER_S * 1e3:.3f} ms at "
+          f"the f32 peak)")
+    ssd_entry = {"name": "ssd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssd.cu",
+                 "replaces": "src/repro/kernels/ssm_scan.py:94",
+                 "launches": None, "max_abs_err": s_err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None,
+                 "shape": f"zamba2-7b {list(SSD_MAIN)}"}
+    return fa_entry, ssd_entry
+
+
+def profile_serving(dev, arch: str) -> None:
+    """Where one full-width bf16 prefill and one decode step spend the
+    card's time: device time by kernel group (torch.profiler, CUDA
+    activity) against the host clock around each, and the device's idle
+    share in between.  The profiler's own host cost is in the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as tf
+
+    arg = lambda k: int(SERVE_ARGV[SERVE_ARGV.index(k) + 1])
+    batch, plen, gen = arg("--batch"), arg("--prompt-len"), arg("--gen")
+    cfg = get_arch(arch)
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(2, cfg.vocab_size, (batch, plen), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    prefill, decode = S.make_prefill_step(cfg, plen + gen), \
+        S.make_decode_step(cfg)
+    last, cache = prefill(params, toks)                      # warm-up
+    tok = torch.argmax(last, -1)
+    decode(params, cache, tok, plen)
+    torch.cuda.synchronize()
+    groups = (("flash_attention", ("flash_kernel",)), ("ssd", ("ssd_kernel",)),
+              ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")))
+    for what, fn in (("prefill", lambda: prefill(params, toks)),
+                     ("decode step", lambda: decode(params, cache, tok,
+                                                    plen + 1))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by = {g: 0.0 for g, _ in groups} | {"other": 0.0}
+        other, launches = {}, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = e.self_device_time_total / 1e3
+            launches += e.count
+            g = next((g for g, keys in groups
+                      if any(k in e.key.lower() for k in keys)), "other")
+            by[g] += ms
+            if g == "other":
+                other[e.key[:60]] = other.get(e.key[:60], 0.0) + ms
+        busy = sum(by.values())
+        if busy == 0.0:
+            print(f"[phaseH] {arch} {what}: the profiler recorded no device "
+                  f"time (breakdown not measured); host clock {wall:.1f} ms")
+            continue
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[phaseH] {arch} {what} (bf16, batch {batch}, prompt "
+              f"{plen}; torch.profiler): host clock {wall:.2f} ms, device "
+              f"busy {busy:.2f} ms (idle share {1 - busy / wall:.3f}) in "
+              f"{launches} device activities; by group (ms): "
+              + json.dumps({g: round(v, 3) for g, v in by.items()})
+              + "; largest other: " + json.dumps(
+                  {k: round(v, 3) for k, v in top}))
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
+    """The serving slice at full width, then full-width correctness inside
+    the port (no JAX on the card)."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as sm
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    waves = int(SERVE_ARGV[SERVE_ARGV.index("--waves") + 1])
+    gen = int(SERVE_ARGV[SERVE_ARGV.index("--gen") + 1])
+    flash_per_prefill = {"zamba2-7b": 13, "gemma-2b": 18}
+    ssd_per_prefill = {"zamba2-7b": 81, "gemma-2b": 0}
+    total = {"flash": 0, "ssd": 0}
+    for arch in ("zamba2-7b", "gemma-2b"):
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = sm.ssd.launches = 0
+        t0 = time.perf_counter()
+        res = serve.main(["--arch", arch, *SERVE_ARGV])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nf, ns = fa.flash_attention.launches, sm.ssd.launches
+        total["flash"] += nf
+        total["ssd"] += ns
+        check(nf == flash_per_prefill[arch] * waves,
+              f"serve {arch}: {nf} flash launches in {waves} waves, want "
+              f"{flash_per_prefill[arch]} per prefill and none in decode")
+        check(ns == ssd_per_prefill[arch] * waves,
+              f"serve {arch}: {ns} ssd launches in {waves} waves, want "
+              f"{ssd_per_prefill[arch]} per prefill and none in decode")
+        check(np.isfinite(res["p50"]) and np.isfinite(res["p99"])
+              and len(res["admitted"]) == waves
+              and all(np.isfinite(v) for d in res["fleet"]
+                      for v in d.values()),
+              f"serve {arch}: result not finite: {res}")
+        print(f"[phaseH] serve --arch {arch} {' '.join(SERVE_ARGV)} (bf16, "
+              f"full width): "
+              f"prefill ms per wave {json.dumps(res['prefill_ms'])}, decode "
+              f"p50 {res['p50'] * 1e3:.3f} ms p99 {res['p99'] * 1e3:.3f} ms "
+              f"per token (host clock after a synchronize), admissions "
+              f"{res['admitted']}; launches {nf} flash_attention + {ns} ssd "
+              f"= {flash_per_prefill[arch]} + {ssd_per_prefill[arch]} per "
+              f"prefill, 0 in {waves * gen} decode steps; {wall:.1f} s with "
+              f"the weights' draw")
+        torch.cuda.empty_cache()
+    fa_entry["launches"], ssd_entry["launches"] = total["flash"], total["ssd"]
+    for arch in ("zamba2-7b", "gemma-2b"):
+        profile_serving(dev, arch)
+
+    # full-width correctness: Zamba2-7B in f32 (~26.6 GB of weights)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), dtype="float32")
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    batch, plen = F32_CHECK
+    toks = torch.randint(2, cfg.vocab_size, (batch, plen + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    full, _ = tf.forward(params, cfg, toks)
+    last, cache, pos = tf.prefill(params, cfg, toks[:, :plen], plen + 32)
+    lg, _ = tf.decode_step(params, cfg, cache, toks[:, plen], pos)
+    scale = float(full[:, -1].abs().max())
+    err = float((lg - full[:, -1]).abs().max())
+    check(np.isfinite(err) and err <= 2e-4 * scale,
+          f"Zamba2-7B f32: decode at {plen} vs forward {err:.3e} > 2e-4 x "
+          f"{scale:.3f}")
+    print(f"[phaseH] Zamba2-7B f32 (batch {batch}, prompt {plen}): decode "
+          f"at position {plen} vs the full forward's last logits max |Δ| "
+          f"{err:.3e} (bound 2e-4 x max|logit| = {2e-4 * scale:.3e})")
+
+    @contextlib.contextmanager
+    def plain_versions():
+        """The models' kernel entries swapped for the plain versions."""
+        saved = ops.flash_attention, ops.ssd
+
+        def plain_ssd(d, b, x, c, *, u=None, h0=None, chunk=64,
+                      include_current=True):
+            return sm.ssd_reference(d, b, x, c, u=u, h0=h0,
+                                    chunk=sm.chunk_for(d.shape[1], chunk),
+                                    include_current=include_current)
+        ops.flash_attention, ops.ssd = fa.flash_attention_reference, plain_ssd
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.ssd = saved
+
+    _, cache_k, _ = tf.prefill(params, cfg, toks[:, :plen], plen + 32)
+    before = (fa.flash_attention.launches, sm.ssd.launches)
+    with plain_versions():
+        last_p, cache_p, _ = tf.prefill(params, cfg, toks[:, :plen],
+                                        plen + 32)
+    check((fa.flash_attention.launches, sm.ssd.launches) == before,
+          "the plain-version prefill launched a kernel")
+    worst = 0.0
+    for name, a, b in [("logits", last, last_p)] + [
+            (k, cache_k[k], cache_p[k]) for k in cache_p]:
+        a, b = a.float(), b.float()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(np.isfinite(rel) and rel <= 1e-4,
+              f"Zamba2-7B f32 prefill: {name} on the kernels vs the plain "
+              f"versions differs by {rel:.3e} of its largest magnitude")
+        worst = max(worst, rel)
+    print(f"[phaseH] Zamba2-7B f32 prefill on the kernels vs on the plain "
+          f"versions: logits and every cache leaf within {worst:.3e} of "
+          f"their largest magnitude (bound 1e-4)")
+    del params, cache, cache_k, cache_p
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,13 @@ The plant ladder's constants cross over the same way:
   * `grid_from_numpy` — a port `GridPlant` running on the reference
     `GridPlant`'s operators (ĝ, deg, the adjacencies) and control
     constants (η, ΣG, eigen-decays) instead of its own derivation.
+
+The serving models' weights and caches cross over leaf for leaf, the
+port keeping the reference's dict keys and stacked [L, …] layout:
+
+  * `params_from_numpy` — `repro.models.transformer.init_params`'s pytree
+    (numpy leaves, e.g. ``jax.device_get(params)``) as the port's params;
+  * `cache_from_numpy` — a reference prefill / decode cache the same way.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core.pdu_gate import Filtration, FiltrationStats
 from repro_torch.core.plant import GridPlant
 from repro_torch.core.scheduler import SchedulerState
 from repro_torch.core.thermal import PoleParams
+from repro_torch.models import transformer
 from repro_torch.fleet.engine import FleetTelemetry
 
 _UNPORTED = ("pkg", "rho_last", "stale", "degraded", "ctrl_mode")
@@ -120,3 +128,48 @@ def grid_from_numpy(ref_grid, cfg, device=None) -> GridPlant:
     plant.eta = float(ref_grid.eta)
     plant.gain_sum = np.float32(ref_grid.gain_sum)
     return plant
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (bfloat16 included: numpy
+    holds it as the ml_dtypes extension type, crossed bit for bit)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
+def params_from_numpy(cfg, tree, device=None) -> dict:
+    """Port parameters for ``cfg`` from the reference's parameter pytree
+    with numpy leaves: same keys, same stacked layout, same dtypes."""
+    transformer.check_supported(cfg)
+    want = {"embed", "final_norm", "blocks"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if cfg.family == "hybrid":
+        want |= {"shared_attn_norm", "shared_attn", "shared_mlp_norm",
+                 "shared_mlp"}
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: parameter keys {sorted(tree)}, want "
+                         f"{sorted(want)}")
+    return _tree(tree, resolve_device(device))
+
+
+def cache_from_numpy(cfg, tree, device=None) -> dict:
+    """Port decode cache for ``cfg`` from a reference cache dict with numpy
+    leaves (``h``/``conv``/``k``/``v``/``pos`` for hybrid, ``k``/``v``/
+    ``pos`` for dense)."""
+    transformer.check_supported(cfg)
+    want = ({"h", "conv", "k", "v", "pos"} if cfg.family == "hybrid"
+            else {"k", "v", "pos"})
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: cache keys {sorted(tree)}, want "
+                         f"{sorted(want)}")
+    return _tree(tree, resolve_device(device))

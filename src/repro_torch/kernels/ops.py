@@ -1,12 +1,39 @@
-"""Public entry to the port's thermal kernel.
+"""Public entries to the port's kernels, routed as `repro.kernels.ops` routes.
 
-Port of the thermal part of `repro.kernels.ops`: `thermal_conv` is
-`repro_torch.kernels.thermal_conv.thermal_conv`, which runs the
-hand-written CUDA kernel for CUDA tensors and the plain PyTorch version for
-CPU tensors — the device of ``power`` decides, nothing else (there is no
-environment switch).  A failed build or launch raises; it never falls back
-to the plain version.
+  * `attention` — decode calls (one query) and calls with explicit key
+    positions go to the exact naive `ref.attention_ref`; full sequences go
+    to `flash_attention`.
+  * `ssd` — the chunked recurrence, `ssm_scan.ssd`.
+  * `ssd_decode_step` — the O(1) one-token update, `ref.ssd_decode_step`
+    (no kernel: the reference has none either).
+  * `thermal_conv` — the Γ-coupled pole-bank trace.
+
+Each kernel wrapper runs its hand-written CUDA kernel for CUDA tensors and
+its plain PyTorch version for CPU tensors: the tensors' device decides,
+nothing else (there is no environment switch).  A failed build or launch
+raises; it never falls back to the plain version.
 """
+# core first: its plant module imports kernels.thermal_conv, which in turn
+# imports core.coupling, so entering the cycle from here would find
+# kernels.thermal_conv half initialised
+import repro_torch.core  # noqa: F401
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssd
 from repro_torch.kernels.thermal_conv import thermal_conv
 
-__all__ = ["thermal_conv"]
+ssd_decode_step = ref.ssd_decode_step
+
+__all__ = ["attention", "ssd", "ssd_decode_step", "thermal_conv"]
+
+
+def attention(q, k, v, *, causal=True, window=0, q_offset=0,
+              kv_positions=None, scale=None):
+    """Multi-head attention (GQA/MQA aware).  q: [B, Tq, H, d]; k, v:
+    [B, Tk, KV, d].  See the module docstring for the routing."""
+    if q.shape[1] == 1 or kv_positions is not None:
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset,
+                                 kv_positions=kv_positions, scale=scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, scale=scale)

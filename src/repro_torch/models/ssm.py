@@ -1,0 +1,109 @@
+"""Mamba2 blocks on the chunked-SSD core (`repro_torch.kernels.ops.ssd`).
+
+Port of the Mamba2 half of `repro.models.ssm` (RWKV6 waits for ROADMAP
+queue 1 step 10):
+
+    h_t = d_t ⊙ h_{t−1} + b_t ⊗ x_t,     y_t = c_t · h_t
+
+with d_t = exp(−Δt·exp(A_log)) (a scalar per head, broadcast over the state
+dim N), b_t = Δt·B_t, c_t = C_t, a D-skip and a SiLU-gated output.  Prefill
+runs the whole sequence through the `ssd` kernel on a card; decode carries
+the O(1) state through `ssd_decode_step`.
+
+The reference's dtype promotions are kept: Δt and the decay are f32, B and
+C come out of the bf16 projection, so at bf16 the kernel receives f32 d and
+b, bf16 c and x, and y comes back in x's dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import normal, param_dtype
+
+
+def mamba2_init(gen: torch.Generator, cfg: ArchConfig, stack: int = 0
+                ) -> dict:
+    d = cfg.d_model
+    di = 2 * d                      # expansion factor 2
+    hs, n = cfg.ssm_heads, cfg.ssm_state
+    dt = param_dtype(cfg)
+    pre = (stack,) if stack else ()
+    dev = gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "in_proj": normal(gen, (*pre, d, 2 * di), dt, d ** -0.5),
+        "bcdt_proj": normal(gen, (*pre, d, 2 * n + hs), dt, d ** -0.5),
+        "conv_w": normal(gen, (*pre, 4, di), dt, 0.5),
+        "a_log": torch.log(torch.linspace(1.0, 8.0, hs, **f32)).expand(
+            *pre, hs).contiguous(),
+        "dt_bias": torch.full((*pre, hs), -4.0, **f32),
+        "d_skip": torch.ones((*pre, hs), **f32),
+        "out_proj": normal(gen, (*pre, di, d), dt, di ** -0.5),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as `jax.nn.softplus` computes it (logaddexp(x, 0)), with
+    no switch to the identity (`F.softplus` returns x above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_pre(p: dict, x, cfg: ArchConfig, conv_state=None):
+    """Shared projections: (xs [B,T,H,P], z, d, b, c, conv_tail); d, b, c
+    are [B, T, H, N] broadcast views."""
+    B, T, D = x.shape
+    di = 2 * D
+    hs, n = cfg.ssm_heads, cfg.ssm_state
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+    # depthwise causal conv of width 4, the four shifted products summed in
+    # the reference's order (with the carried tail for decode)
+    if conv_state is not None:
+        xpad = torch.cat([conv_state, xi], dim=1)
+    else:
+        xpad = F.pad(xi, (0, 0, 3, 0))
+    w = p["conv_w"]
+    xc = xpad[:, 0:T] * w[0][None, None]
+    for i in range(1, 4):
+        xc = xc + xpad[:, i:i + T] * w[i][None, None]
+    xc = F.silu(xc)
+    bcdt = x @ p["bcdt_proj"]
+    b_in = bcdt[..., :n]
+    c_in = bcdt[..., n:2 * n]
+    dt_raw = bcdt[..., 2 * n:].float()
+    delta = softplus(dt_raw + p["dt_bias"][None, None])          # [B,T,H]
+    decay = torch.exp(-delta * torch.exp(p["a_log"])[None, None])
+    xs = xc.reshape(B, T, hs, di // hs)
+    d_full = decay[..., None].expand(B, T, hs, n)
+    b_full = delta[..., None] * b_in[:, :, None, :].expand(B, T, hs, n)
+    c_full = c_in[:, :, None, :].expand(B, T, hs, n)
+    # the tail is copied out so a cached tail does not hold all of xpad
+    return xs, z, d_full, b_full, c_full, xpad[:, -3:].clone()
+
+
+def mamba2_forward(p: dict, x, cfg: ArchConfig, chunk: int = 64):
+    """Full-sequence Mamba2 block.  Returns (y, (h_final, conv_tail))."""
+    B, T, D = x.shape
+    xs, z, d, b, c, tail = _mamba_pre(p, x, cfg)
+    y, hT = ops.ssd(d.contiguous(), b.contiguous(), xs.contiguous(),
+                    c.contiguous(), chunk=min(chunk, T),
+                    include_current=True)
+    y = y + p["d_skip"][None, None, :, None].to(y.dtype) * xs
+    y = y.reshape(B, T, 2 * D) * F.silu(z)
+    return y @ p["out_proj"], (hT, tail)
+
+
+def mamba2_decode(p: dict, x, cfg: ArchConfig, h, conv_state):
+    """One-token decode.  h: [B,H,N,P] f32; conv_state: [B,3,di].
+    Returns (y, h_next, conv_tail)."""
+    B = x.shape[0]
+    xs, z, d, b, c, tail = _mamba_pre(p, x, cfg, conv_state)
+    y, h_next = ops.ssd_decode_step(d[:, 0], b[:, 0], xs[:, 0], c[:, 0],
+                                    h=h, include_current=True)
+    y = y + p["d_skip"][None, :, None].to(y.dtype) * xs[:, 0]
+    y = y.reshape(B, 1, -1) * F.silu(z)
+    return y @ p["out_proj"], h_next, tail
+

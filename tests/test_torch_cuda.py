@@ -1,6 +1,7 @@
 """PyTorch port on the card: the hand-written CUDA kernels (`fleet_step`,
-`thermal_conv`, `grid_conv`) against their plain PyTorch versions, and the
-fused engine against the broadcast engine.
+`thermal_conv`, `grid_conv`, `flash_attention`, `ssd`) against their plain
+PyTorch versions, the fused engine against the broadcast engine, and the
+serving models' kernel launches.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with the
 reason "needs CUDA" elsewhere.  Imports nothing of JAX, so it also runs
@@ -25,8 +26,12 @@ from repro_torch.core.thermal import two_pole
 from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
 from repro_torch.fleet import FleetEngine, chunk_source, stream
 from repro_torch.fleet.backends.fused import FusedBackend
+from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fleet_step as tfs
+from repro_torch.kernels import ssm_scan as tsm
 from repro_torch.kernels import thermal_conv as ttc
+from repro_torch.models import transformer as ttf
 
 MODES = ["v24", "reactive", "reactive_poll", "off"]
 
@@ -184,3 +189,120 @@ def test_cuda_grid_conv_every_patch_edge(cuda, cells):
         substeps=plant.substeps)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(np_(a), np_(b), **TOL)
+
+
+# ----------------------------------------------- the serving slice's kernels
+# bounds: the reference's (tests/test_kernels.py) — flash 2e-5 in f32 and
+# 2e-2 in bf16, ssd 3e-5; a bf16 ssd output also one bf16 rounding step of
+# its value (rtol 2^-7), as kernel and plain version may round either way
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,d,window,q_offset", [
+    (2, 256, 256, 4, 2, 64, 0, 0),
+    (1, 256, 256, 8, 1, 128, 0, 0),
+    (2, 512, 512, 4, 4, 64, 128, 0),
+    (1, 128, 128, 2, 2, 256, 0, 0),
+    (2, 100, 100, 4, 2, 112, 0, 0),        # ragged, Zamba2's head_dim
+    (1, 96, 160, 4, 1, 64, 32, 64),         # q_offset and window
+    (1, 64, 200, 2, 1, 32, 8, 300),         # the window empties every row
+])
+def test_cuda_flash_matches_plain_version(cuda, dtype, B, Tq, Tk, H, KV, d,
+                                          window, q_offset):
+    g = torch.Generator().manual_seed(Tq + d)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, dtype) for s in (
+        (B, Tq, H, d), (B, Tk, KV, d), (B, Tk, KV, d)))
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, Tq, H, d)
+    ref = tfa.flash_attention_reference(q, k, v, window=window,
+                                        q_offset=q_offset)
+    np.testing.assert_allclose(np_(out.float()), np_(ref.float()),
+                               atol=FLASH_ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("B,T,H,N,P,dec_min,inc,use_u,use_h0", [
+    (2, 128, 2, 64, 64, 0.90, True, False, False),
+    (1, 256, 4, 32, 64, 0.80, False, True, False),
+    (2, 128, 2, 16, 32, 0.95, False, True, True),
+    (1, 64, 2, 64, 128, 0.70, True, False, True),
+    (1, 200, 3, 64, 64, 0.90, True, False, False),    # chunk 8
+])
+def test_cuda_ssd_matches_plain_version(cuda, mixed, B, T, H, N, P, dec_min,
+                                        inc, use_u, use_h0):
+    g = torch.Generator().manual_seed(T + N)
+    d = (dec_min + (0.999 - dec_min) * torch.rand((B, T, H, N), generator=g)
+         ).to(cuda)
+    b = (0.2 * torch.randn((B, T, H, N), generator=g)).to(cuda)
+    x = torch.randn((B, T, H, P), generator=g).to(cuda)
+    c = (0.2 * torch.randn((B, T, H, N), generator=g)).to(cuda)
+    if mixed:                          # Mamba2 at bf16: c and x in bf16
+        x, c = x.to(torch.bfloat16), c.to(torch.bfloat16)
+    u = (0.1 * torch.randn((H, N), generator=g)).to(cuda) if use_u else None
+    h0 = torch.randn((B, H, N, P), generator=g).to(cuda) if use_h0 else None
+    before = tsm.ssd.launches
+    y, hT = tsm.ssd(d, b, x, c, u=u, h0=h0, include_current=inc)
+    torch.cuda.synchronize()
+    assert tsm.ssd.launches == before + 1
+    assert y.dtype == x.dtype and hT.dtype == torch.float32
+    ry, rh = tsm.ssd_reference(d, b, x, c, u=u, h0=h0,
+                               chunk=tsm.chunk_for(T, 64),
+                               include_current=inc)
+    np.testing.assert_allclose(np_(y.float()), np_(ry.float()), atol=3e-5,
+                               rtol=2.0 ** -7 if mixed else 0)
+    np.testing.assert_allclose(np_(hT), np_(rh), atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_wrappers_raise_on_wrong_device_or_dtype(cuda):
+    q = torch.randn(1, 64, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        tfa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), q.half(), q.half())
+    d = torch.rand(1, 64, 2, 16, device=cuda)
+    x = torch.randn(1, 64, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        tsm.ssd(d, d.cpu(), x, d)
+    with pytest.raises(TypeError):
+        tsm.ssd(d.double(), d, x, d)
+    with pytest.raises(ValueError):
+        tsm.ssd(d, d, x, d, h0=torch.zeros(1, 2, 16, 8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma-2b"])
+def test_cuda_models_launch_kernels_in_prefill_only(cuda, arch):
+    """A reduced model on the card: one ssd launch per Mamba2 layer and one
+    flash launch per attention application in prefill, none in decode; its
+    logits equal the CPU's (plain versions) within 1e-4."""
+    cfg = reduced(get_arch(arch))
+    params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(2, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    cpu_last, cpu_cache, _ = ttf.prefill(params, cfg, toks, 80)
+    cpu_lg, _ = ttf.decode_step(params, cfg, cpu_cache, toks[:, 0], 64)
+    to = lambda t: ({k: to(v) for k, v in t.items()} if isinstance(t, dict)
+                    else t.to(cuda))
+    gp = to(params)
+    n_attn = (sum(1 for gs in ttf._hybrid_group_ids(cfg)
+                  if gs == cfg.attn_every) if cfg.family == "hybrid"
+              else cfg.n_layers)
+    n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
+    f0, s0 = tfa.flash_attention.launches, tsm.ssd.launches
+    last, cache, _ = ttf.prefill(gp, cfg, toks.to(cuda), 80)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - f0, tsm.ssd.launches - s0) == \
+        (n_attn, n_ssd)
+    lg, _ = ttf.decode_step(gp, cfg, cache, toks[:, 0].to(cuda), 64)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - f0, tsm.ssd.launches - s0) == \
+        (n_attn, n_ssd)
+    np.testing.assert_allclose(np_(last), np_(cpu_last), atol=1e-4)
+    np.testing.assert_allclose(np_(lg), np_(cpu_lg), atol=1e-4)

@@ -240,7 +240,7 @@ def test_serve_stream_runs_on_cpu_and_backends_agree():
 
 @pytest.mark.parametrize("flags,step", [
     (["--montecarlo", "4"], 5), (["--serve"], 8), (["--chaos"], 5),
-    (["--stream", "--distributed"], 9), ([], 10),
+    (["--stream", "--distributed"], 9), (["--arch", "rwkv6-1.6b"], 10),
     (["--stream", "--node", "n3"], 5)])
 def test_serve_unported_paths_exit_nonzero(flags, step):
     with pytest.raises(SystemExit) as exc:

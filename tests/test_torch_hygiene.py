@@ -52,9 +52,13 @@ def test_port_has_every_module_of_the_slice():
                 "kernels/thermal_conv.py", "kernels/ops.py",
                 "core/workload.py", "core/dvfs.py", "core/cpo.py",
                 "core/hbm.py", "core/serdes.py", "core/dataset90k.py",
-                "core/telemetry.py"):
+                "core/telemetry.py", "kernels/flash_attention.py",
+                "kernels/ssm_scan.py", "kernels/ref.py", "models/layers.py",
+                "models/attention.py", "models/ssm.py",
+                "models/transformer.py", "launch/steps.py"):
         assert mod in names, mod
-    for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu"):
+    for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
+                "flash_attention.cu", "ssd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file(), src
 
