@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card's name and power limit (nvidia-smi) and builds the
-         `fleet_step` kernel from the checkout's source.
+         six kernel sources of the checkout, one nvcc each, in parallel.
 Phase A  the `fleet_step` CUDA kernel against its plain PyTorch version
          (`fleet_step_reference`) on the card at 1 tile × 4,096 packages
          (serve --stream's shape: no Γ, 32-package blocks), 4 tiles × 200
@@ -50,21 +50,31 @@ Phase F  the plant ladder in the fleet (per-step path): 47-tile v24 fleets
          Appendix-B dataset's R², both made and run on the card.
 Phase G  the model-serving kernels against their plain versions on the
          card, in f32 (flash atol 2e-5, ssd atol 3e-5: the reference's own
-         bounds) and bf16: `flash_attention` on the reference test's sweep,
+         bounds) and bf16 (flash atol 2e-2).  `flash_attention` on both of
+         its routes, each launch checked to take the route `flash_route`
+         names: bf16 with d in {64, 112, 128, 256} on the tensor-core kernel
+         (flash_attention_tc.cu), f32, mixed types and d = 32 on the
+         CUDA-core kernel (flash_attention.cu) — the reference test's sweep,
          Zamba2-7B's [8, 1,024, 32, 112] and Gemma-2B's [8, 1,024, 8 on 1,
-         256] prefill shapes, a ragged T = 1,000, window 128, a q_offset;
-         `ssd` on the reference test's sweep (mamba and rwkv regimes, u,
-         include_current both ways, an h0), two chained halves against one
-         run, and Zamba2-7B's prefill shape [8, 1,024, 112, 64 / 64] with
-         f32 d and b, bf16 c and x.  Each timed at its main-path shape beside
-         its bound and its plain version; flash also beside
+         256] prefill shapes, MHA / GQA / MQA at every tensor-core head
+         dim, causal and not, windows (one that empties every row),
+         q_offsets and ragged Tq / Tk; `ssd` on the reference test's sweep
+         (mamba and rwkv regimes, u, include_current both ways, an h0), odd
+         and unaligned N / P, f32 and bf16 c, x (a bf16 y also within one
+         bf16 step), two chained halves against one run, and Zamba2-7B's
+         prefill shape [8, 1,024, 112, 64 / 64] with f32 d and b, bf16 c
+         and x.  Each timed at its main-path shape beside its first
+         version's time, its bound and its plain version; flash also beside
+         the CUDA-core kernel on the same values in f32 and
          scaled_dot_product_attention (library_ms, a yardstick only).
 Phase H  the serving slice end to end at full width in bf16: `serve`
          --arch zamba2-7b, then gemma-2b, --batch 8 --prompt-len 1024
          --gen 32 --waves 3 --fleet 64 — exactly 81 ssd and 13 flash
          launches per Zamba2-7B prefill, 18 flash per Gemma-2B prefill and
-         none in decode; a profiled prefill and decode step of each (device
-         time by kernel group, idle share).  Then, with no JAX on the card,
+         none in decode, every flash launch on the tensor-core route; a
+         profiled prefill and decode step of each (device time by kernel
+         group, idle share; each kernel group holds exactly those
+         launches).  Then, with no JAX on the card,
          full-width correctness inside the port: Zamba2-7B in f32 (batch 2,
          prompt 128) decoding position 128 equals the full forward's last
          logits within 2e-4 × max|logit|, and its prefill on the kernels
@@ -99,7 +109,7 @@ FP32_LATENCY_CYCLES = 4
 SHFL_LATENCY_CYCLES = 24
 TOL = dict(rtol=1e-5, atol=1e-5)
 KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
-           "ssd")
+           "flash_attention_tc", "ssd")
 # full-width (tiles, steps) of the thermal kernels' main paths: the paper's
 # 90k-step dataset length at thermal_conv's datacenter width (N = 512, the
 # reference kernel's stated O(512)) and at the 47-tile Ponte-Vecchio grid
@@ -111,6 +121,11 @@ GRID_FULL = (47, 90_000)
 FLASH_MAIN = {"zamba2-7b": (8, 1024, 32, 32, 112),
               "gemma-2b": (8, 1024, 8, 1, 256)}
 SSD_MAIN = (8, 1024, 112, 64, 64)
+# the first versions of those kernels at those shapes (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md's kernel table), printed beside the current times:
+# flash (f32 FMAs on the CUDA cores) by (H, d), then ssd (unpipelined)
+FLASH_FIRST_MS = {(32, 112): 5.792, (8, 256): 4.047}
+SSD_FIRST_MS = 3.180
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
               "--waves", "3", "--fleet", "64"]
 F32_CHECK = (2, 128)
@@ -738,8 +753,8 @@ def phase_f(dev, window) -> None:
           f"alpha {a:.3f}, beta {b:.2f}, R^2 {r2:.5f}")
 
 def phase_g(dev) -> tuple[dict, dict]:
-    """`flash_attention` and `ssd`: kernel vs plain version, then timed at
-    the main path's shapes."""
+    """`flash_attention` (both routes) and `ssd`: kernel vs plain version,
+    then timed at the main path's shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -747,46 +762,79 @@ def phase_g(dev) -> tuple[dict, dict]:
     from repro_torch.kernels import ssm_scan as sm
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     # the reference's bounds (tests/test_kernels.py); a bf16 output is also
     # allowed one bf16 rounding step of its f32 value (rtol 2^-7), since
     # kernel and plain version may round a value on either side of a tie
-    flash_tol = {torch.float32: dict(atol=2e-5), bf16: dict(atol=2e-2)}
+    flash_tol = {f32: dict(atol=2e-5), bf16: dict(atol=2e-2)}
     BF16_STEP = 2.0 ** -7
 
-    def qkv(B, Tq, Tk, H, KV, d, dtype):
-        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
-        return r(B, Tq, H, d), r(B, Tk, KV, d), r(B, Tk, KV, d)
+    def qkv(B, Tq, Tk, H, KV, d, dtype, kv_dtype=None):
+        r = lambda dt, *s: torch.randn(s, generator=gen, device=dev).to(dt)
+        kv_dtype = kv_dtype or dtype
+        return (r(dtype, B, Tq, H, d), r(kv_dtype, B, Tk, KV, d),
+                r(kv_dtype, B, Tk, KV, d))
 
-    f_err = 0.0
-    cases = [  # (B, Tq, Tk, H, KV, d, window, q_offset, what)
-        (2, 256, 256, 4, 2, 64, 0, 0, "sweep"),
-        (1, 256, 256, 8, 1, 128, 0, 0, "sweep MQA"),
-        (2, 512, 512, 4, 4, 64, 128, 0, "sweep window 128"),
-        (1, 128, 128, 2, 2, 256, 0, 0, "sweep head_dim 256"),
-        *((B, T, T, H, KV, d, 0, 0, f"{arch} prefill")
+    def flash_check(q, k, v, what, causal=True, w=0, off=0):
+        """One launch against the plain version; returns (error, route)."""
+        route = fa.flash_route("cuda", q.dtype, k.dtype, q.shape[-1],
+                               v.shape[-1])
+        before = dict(fa.flash_attention.launches_by_route)
+        out = fa.flash_attention(q, k, v, causal=causal, window=w,
+                                 q_offset=off)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches_by_route[route]
+              == before[route] + 1, f"phase G flash {what}: not launched on "
+              f"the {route} route")
+        ref = fa.flash_attention_reference(q, k, v, causal=causal, window=w,
+                                           q_offset=off)
+        e = max_err((out,), (ref,), f"phase G flash {what} {q.dtype}",
+                    rtol=0.0, **flash_tol[out.dtype])
+        print(f"[phaseG] flash_attention {what} q {list(q.shape)} kv "
+              f"[{k.shape[1]}, {k.shape[2]}] {q.dtype}/{k.dtype} causal "
+              f"{causal} window {w} q_offset {off}: {route} route, "
+              f"max_abs_err vs plain {e:.3e}")
+        return e, route
+
+    f_err = {"tensor_core": 0.0, "cuda_core": 0.0}
+    cases = [  # (B, Tq, Tk, H, KV, d, causal, window, q_offset, what)
+        (2, 256, 256, 4, 2, 64, True, 0, 0, "sweep"),
+        (1, 256, 256, 8, 1, 128, True, 0, 0, "sweep MQA"),
+        (2, 512, 512, 4, 4, 64, True, 128, 0, "sweep window 128"),
+        (1, 128, 128, 2, 2, 256, True, 0, 0, "sweep head_dim 256"),
+        *((B, T, T, H, KV, d, True, 0, 0, f"{arch} prefill")
           for arch, (B, T, H, KV, d) in FLASH_MAIN.items()),
-        (2, 1000, 1000, 4, 2, 112, 0, 0, "ragged T=1000"),
-        (2, 1000, 1000, 4, 2, 112, 128, 0, "ragged, window 128"),
-        (2, 512, 1024, 4, 2, 64, 0, 512, "q_offset 512"),
-        (1, 64, 200, 2, 1, 32, 8, 300, "window empties every row")]
-    for B, Tq, Tk, H, KV, d, w, off, what in cases:
-        for dtype in (torch.float32, bf16):
-            q, k, v = qkv(B, Tq, Tk, H, KV, d, dtype)
-            out = fa.flash_attention(q, k, v, window=w, q_offset=off)
-            torch.cuda.synchronize()
-            ref = fa.flash_attention_reference(q, k, v, window=w,
-                                               q_offset=off)
-            e = max_err((out,), (ref,), f"phase G flash {what} {dtype}",
-                        rtol=0.0, **flash_tol[dtype])
-            f_err = max(f_err, e)
-            print(f"[phaseG] flash_attention {what} q [{B}, {Tq}, {H}, {d}] "
-                  f"kv [{Tk}, {KV}] window {w} q_offset {off} {dtype}: "
-                  f"max_abs_err vs plain {e:.3e}")
+        (2, 1000, 1000, 4, 2, 112, True, 0, 0, "ragged T=1000"),
+        (2, 1000, 1000, 4, 2, 112, True, 128, 0, "ragged, window 128"),
+        (2, 512, 1024, 4, 2, 64, True, 0, 512, "q_offset 512"),
+        (1, 64, 200, 2, 1, 32, True, 8, 300, "window empties every row"),
+        # the tensor-core route's head dims, MHA / GQA / MQA, its edges
+        (1, 300, 300, 6, 6, 64, True, 0, 0, "MHA d 64 ragged"),
+        (2, 200, 333, 6, 3, 112, True, 48, 133, "GQA d 112 window q_offset"),
+        (1, 190, 190, 8, 1, 128, False, 0, 0, "MQA d 128 not causal"),
+        (2, 130, 257, 4, 2, 256, True, 0, 127, "GQA d 256 ragged q_offset"),
+        (1, 64, 200, 3, 1, 112, True, 8, 300, "MQA d 112 window empties rows"),
+        (1, 97, 97, 5, 5, 256, True, 16, 0, "MHA d 256 window, odd heads")]
+    for B, Tq, Tk, H, KV, d, causal, w, off, what in cases:
+        for dtype in (f32, bf16):
+            e, route = flash_check(*qkv(B, Tq, Tk, H, KV, d, dtype), what,
+                                   causal, w, off)
+            want = ("tensor_core" if dtype == bf16 and d in fa.TC_HEAD_DIMS
+                    else "cuda_core")
+            check(route == want, f"phase G flash {what} {dtype}: route "
+                  f"{route}, want {want}")
+            f_err[route] = max(f_err[route], e)
+    # mixed types take the CUDA-core kernel
+    e, route = flash_check(*qkv(1, 128, 128, 4, 2, 112, f32, bf16),
+                           "mixed q f32, k/v bf16")
+    check(route == "cuda_core", f"phase G flash mixed types: route {route}")
+    f_err["cuda_core"] = max(f_err["cuda_core"], e)
 
     def flash_times(B, T, H, KV, d):
         q, k, v = qkv(B, T, T, H, KV, d, bf16)
         ms = event_ms(lambda: fa.flash_attention(q, k, v), 10)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ms_f32 = event_ms(lambda: fa.flash_attention(q32, k32, v32), 3)
         plain = timed(lambda: fa.flash_attention_reference(q, k, v))[1]
         # the yardstick: one PyTorch call for the same function, its KV
         # heads repeated and heads moved to dim 1 outside the timed call
@@ -802,27 +850,33 @@ def phase_g(dev) -> tuple[dict, dict]:
         cost = fa.flash_attention_cost(q, k, v)
         b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
         print(f"[phaseG] flash_attention [{B}, {T}, {H} on {KV}, {d}] bf16 "
-              f"causal: kernel {ms:.3f} ms (median of 10, CUDA events), "
-              f"plain {plain:.1f} ms (one run), scaled_dot_product_attention "
-              f"{lib:.3f} ms (|Δ| {e:.2e} vs the kernel); bound {b_ms:.4f} ms "
-              f"by {b_by} ({cost['bytes'] / 1e6:.1f} MB, "
-              f"{cost['ops'] / 1e9:.2f} GFLOP over {cost['pairs']} kept "
-              f"pairs per head, at the bf16 peak)")
-        return ms, plain, lib, b_ms, b_by
+              f"causal: tensor-core kernel {ms:.4f} ms (median of 10, CUDA "
+              f"events; {FLASH_FIRST_MS[(H, d)]} ms for its first, CUDA-core "
+              f"version), the CUDA-core kernel on the same values in f32 "
+              f"{ms_f32:.3f} ms, plain {plain:.1f} ms (one run), "
+              f"scaled_dot_product_attention {lib:.4f} ms (|Δ| {e:.2e} vs "
+              f"the kernel); bound {b_ms:.4f} ms by {b_by} "
+              f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} GFLOP "
+              f"over {cost['pairs']} kept pairs per head, at the bf16 peak)")
+        return ms, plain, lib, b_ms, b_by, ms_f32
 
     z = flash_times(*FLASH_MAIN["zamba2-7b"])
     g = flash_times(*FLASH_MAIN["gemma-2b"])
     fa_entry = {"name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:94",
-                "launches": None, "max_abs_err": f_err, "ms": z[0],
-                "plain_ms": z[1], "bound_ms": z[3], "bound_by": z[4],
-                "library_ms": z[2],
+                "launches": None, "max_abs_err": f_err["tensor_core"],
+                "ms": z[0], "plain_ms": z[1], "bound_ms": z[3],
+                "bound_by": z[4], "library_ms": z[2],
                 "shape": f"zamba2-7b {list(FLASH_MAIN['zamba2-7b'])}",
                 "ms_gemma": g[0], "plain_ms_gemma": g[1],
-                "bound_ms_gemma": g[3], "library_ms_gemma": g[2]}
+                "bound_ms_gemma": g[3], "library_ms_gemma": g[2],
+                "cuda_core_source":
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "cuda_core_max_abs_err": f_err["cuda_core"],
+                "cuda_core_ms_f32": z[5], "cuda_core_ms_f32_gemma": g[5]}
 
-    def ssd_in(B, T, H, N, P, dec_min, dtypes=(torch.float32,) * 4):
+    def ssd_in(B, T, H, N, P, dec_min, dtypes=(f32,) * 4):
         r = lambda *s: torch.randn(s, generator=gen, device=dev)
         d = dec_min + (0.999 - dec_min) * torch.rand(
             (B, T, H, N), generator=gen, device=dev)
@@ -830,14 +884,19 @@ def phase_g(dev) -> tuple[dict, dict]:
             (d, 0.2 * r(B, T, H, N), r(B, T, H, P), 0.2 * r(B, T, H, N)),
             dtypes)]
 
+    mixed = (f32, f32, bf16, bf16)         # Mamba2 at bf16: c and x in bf16
     s_err = 0.0
-    for B, T, H, N, P, dec_min, inc, use_u, use_h0 in (
-            (2, 128, 2, 64, 64, 0.90, True, False, False),   # mamba2
-            (1, 256, 4, 32, 64, 0.80, False, True, False),   # rwkv, u
-            (2, 128, 2, 16, 32, 0.95, False, True, True),
-            (1, 64, 2, 64, 128, 0.70, True, False, True),    # strong decay
-            (2, 1000, 3, 64, 64, 0.90, True, False, True)):  # chunk 8
-        d, b, x, c = ssd_in(B, T, H, N, P, dec_min)
+    for B, T, H, N, P, dec_min, inc, use_u, use_h0, dts in (
+            (2, 128, 2, 64, 64, 0.90, True, False, False, None),  # mamba2
+            (1, 256, 4, 32, 64, 0.80, False, True, False, None),  # rwkv, u
+            (2, 128, 2, 16, 32, 0.95, False, True, True, None),
+            (1, 64, 2, 64, 128, 0.70, True, False, True, None),   # strong
+            (2, 1000, 3, 64, 64, 0.90, True, False, True, None),  # chunk 8
+            (1, 7, 2, 6, 6, 0.90, True, True, True, None),        # odd rows
+            (1, 96, 3, 20, 36, 0.90, False, True, True, mixed),
+            (2, 128, 2, 64, 64, 0.90, True, False, True, mixed),
+            (1, 64, 2, 64, 128, 0.70, True, True, True, mixed)):
+        d, b, x, c = ssd_in(B, T, H, N, P, dec_min, dts or (f32,) * 4)
         u = (0.1 * torch.randn((H, N), generator=gen, device=dev)
              if use_u else None)
         h0 = (torch.randn((B, H, N, P), generator=gen, device=dev)
@@ -848,8 +907,12 @@ def phase_g(dev) -> tuple[dict, dict]:
                                chunk=sm.chunk_for(T, 64),
                                include_current=inc)
         where = (f"ssd [{B}, {T}, {H}, {N}/{P}] decay >= {dec_min} "
-                 f"include_current {inc} u {use_u} h0 {use_h0}")
-        e = max_err(out, ref, f"phase G {where}", rtol=0.0, atol=3e-5)
+                 f"include_current {inc} u {use_u} h0 {use_h0} "
+                 f"{'c, x bf16' if dts else 'f32'}")
+        e = max(max_err(out[:1], ref[:1], f"phase G {where} y", rtol=(
+                    BF16_STEP if dts else 0.0), atol=3e-5),
+                max_err(out[1:], ref[1:], f"phase G {where} hT", rtol=0.0,
+                        atol=3e-5))
         s_err = max(s_err, e)
         print(f"[phaseG] {where}: max_abs_err vs plain {e:.3e}, bit-exact "
               f"{all(torch.equal(a, b) for a, b in zip(out, ref))}")
@@ -864,8 +927,7 @@ def phase_g(dev) -> tuple[dict, dict]:
           f"max_abs_err {e:.3e}")
 
     # Zamba2-7B's prefill shape: f32 d and b, bf16 c and x, y in bf16
-    zd, zb, zx, zc = ssd_in(*SSD_MAIN, 0.9,
-                            (torch.float32, torch.float32, bf16, bf16))
+    zd, zb, zx, zc = ssd_in(*SSD_MAIN, 0.9, mixed)
     out = sm.ssd(zd, zb, zx, zc)
     torch.cuda.synchronize()
     ref, plain_ms = timed(lambda: sm.ssd_reference(zd, zb, zx, zc))
@@ -879,8 +941,10 @@ def phase_g(dev) -> tuple[dict, dict]:
     b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
     print(f"[phaseG] ssd Zamba2-7B prefill {list(SSD_MAIN)} (d, b f32; "
           f"c, x bf16): max_abs_err vs plain {e:.3e} (y within one bf16 "
-          f"step); kernel {ms:.3f} ms (median of 10, CUDA events), plain "
-          f"{plain_ms:.1f} ms (one run); bound {b_ms:.4f} ms by {b_by} "
+          f"step); kernel {ms:.4f} ms (median of 10, CUDA events; "
+          f"{SSD_FIRST_MS} ms for its first, unpipelined version), plain "
+          f"{plain_ms:.1f} ms "
+          f"(one run); bound {b_ms:.4f} ms by {b_by} "
           f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} GFLOP at "
           f"the bf16 peak; {cost['ops'] / PEAK_F32_PER_S * 1e3:.3f} ms at "
           f"the f32 peak)")
@@ -894,11 +958,21 @@ def phase_g(dev) -> tuple[dict, dict]:
     return fa_entry, ssd_entry
 
 
-def profile_serving(dev, arch: str) -> None:
+# the profiler's kernel groups: the port's kernels by the names their
+# sources give them (flash: both routes), then the library GEMMs
+PROFILE_GROUPS = (("flash_attention", ("flash_tc_kernel", "flash_kernel")),
+                  ("ssd", ("ssd_kernel",)),
+                  ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")))
+
+
+def profile_serving(dev, arch: str, launches: dict) -> None:
     """Where one full-width bf16 prefill and one decode step spend the
     card's time: device time by kernel group (torch.profiler, CUDA
     activity) against the host clock around each, and the device's idle
-    share in between.  The profiler's own host cost is in the host clock."""
+    share in between.  The profiler's own host cost is in the host clock.
+    Each port kernel's group must hold exactly ``launches[group]`` kernel
+    runs in the prefill and none in the decode step, so a kernel the
+    groups do not name cannot land in another group unseen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,8 +992,7 @@ def profile_serving(dev, arch: str) -> None:
     tok = torch.argmax(last, -1)
     decode(params, cache, tok, plen)
     torch.cuda.synchronize()
-    groups = (("flash_attention", ("flash_kernel",)), ("ssd", ("ssd_kernel",)),
-              ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")))
+    groups = PROFILE_GROUPS
     for what, fn in (("prefill", lambda: prefill(params, toks)),
                      ("decode step", lambda: decode(params, cache, tok,
                                                     plen + 1))):
@@ -930,18 +1003,25 @@ def profile_serving(dev, arch: str) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         by = {g: 0.0 for g, _ in groups} | {"other": 0.0}
-        other, launches = {}, 0
+        runs = {g: 0 for g, _ in groups} | {"other": 0}
+        other, activities = {}, 0
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             ms = e.self_device_time_total / 1e3
-            launches += e.count
+            activities += e.count
             g = next((g for g, keys in groups
                       if any(k in e.key.lower() for k in keys)), "other")
             by[g] += ms
+            runs[g] += e.count
             if g == "other":
                 other[e.key[:60]] = other.get(e.key[:60], 0.0) + ms
         busy = sum(by.values())
+        for g, n in launches.items():
+            want = n if what == "prefill" else 0
+            check(busy == 0.0 or runs[g] == want,
+                  f"profile {arch} {what}: {runs[g]} {g} kernel runs, want "
+                  f"{want}")
         if busy == 0.0:
             print(f"[phaseH] {arch} {what}: the profiler recorded no device "
                   f"time (breakdown not measured); host clock {wall:.1f} ms")
@@ -950,7 +1030,7 @@ def profile_serving(dev, arch: str) -> None:
         print(f"[phaseH] {arch} {what} (bf16, batch {batch}, prompt "
               f"{plen}; torch.profiler): host clock {wall:.2f} ms, device "
               f"busy {busy:.2f} ms (idle share {1 - busy / wall:.3f}) in "
-              f"{launches} device activities; by group (ms): "
+              f"{activities} device activities; by group (ms): "
               + json.dumps({g: round(v, 3) for g, v in by.items()})
               + "; largest other: " + json.dumps(
                   {k: round(v, 3) for k, v in top}))
@@ -981,7 +1061,8 @@ def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
     total = {"flash": 0, "ssd": 0}
     for arch in ("zamba2-7b", "gemma-2b"):
         torch.cuda.synchronize()
-        fa.flash_attention.launches = sm.ssd.launches = 0
+        fa.reset_launches()
+        sm.ssd.launches = 0
         t0 = time.perf_counter()
         res = serve.main(["--arch", arch, *SERVE_ARGV])
         torch.cuda.synchronize()
@@ -992,6 +1073,10 @@ def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
         check(nf == flash_per_prefill[arch] * waves,
               f"serve {arch}: {nf} flash launches in {waves} waves, want "
               f"{flash_per_prefill[arch]} per prefill and none in decode")
+        routes = fa.flash_attention.launches_by_route
+        check(routes["tensor_core"] == nf and routes["cuda_core"] == 0,
+              f"serve {arch}: flash launches by route {routes}, want every "
+              f"bf16 launch on the tensor-core route")
         check(ns == ssd_per_prefill[arch] * waves,
               f"serve {arch}: {ns} ssd launches in {waves} waves, want "
               f"{ssd_per_prefill[arch]} per prefill and none in decode")
@@ -1005,14 +1090,16 @@ def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
               f"prefill ms per wave {json.dumps(res['prefill_ms'])}, decode "
               f"p50 {res['p50'] * 1e3:.3f} ms p99 {res['p99'] * 1e3:.3f} ms "
               f"per token (host clock after a synchronize), admissions "
-              f"{res['admitted']}; launches {nf} flash_attention + {ns} ssd "
+              f"{res['admitted']}; launches {nf} flash_attention (all on the "
+              f"tensor-core route) + {ns} ssd "
               f"= {flash_per_prefill[arch]} + {ssd_per_prefill[arch]} per "
               f"prefill, 0 in {waves * gen} decode steps; {wall:.1f} s with "
               f"the weights' draw")
         torch.cuda.empty_cache()
     fa_entry["launches"], ssd_entry["launches"] = total["flash"], total["ssd"]
     for arch in ("zamba2-7b", "gemma-2b"):
-        profile_serving(dev, arch)
+        profile_serving(dev, arch, {"flash_attention": flash_per_prefill[arch],
+                                    "ssd": ssd_per_prefill[arch]})
 
     # full-width correctness: Zamba2-7B in f32 (~26.6 GB of weights)
     torch.backends.cuda.matmul.allow_tf32 = False

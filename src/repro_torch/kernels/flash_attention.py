@@ -3,12 +3,19 @@
 Port of the TPU kernel `repro.kernels.flash_attention.flash_attention`
 (Pallas body `_kernel`), with its plain version.
 
-  * `flash_attention` — the wrapper.  On CUDA tensors it launches the
-    hand-written Hopper kernel (``csrc/flash_attention.cu``: one block per
-    (Q tile, head, batch) looping over the KV tiles, running max, sum and
-    f32 accumulator on chip, the output written once) or raises; on CPU
-    tensors it runs `flash_attention_reference`.
-    ``flash_attention.launches`` counts kernel launches.
+  * `flash_attention` — the wrapper.  On CUDA tensors it launches one of
+    two hand-written Hopper kernels, as `flash_route` says, or raises; on
+    CPU tensors it runs `flash_attention_reference`.
+      - ``tensor_core`` (``csrc/flash_attention_tc.cu``): bf16 q, k and v
+        with d = dv ∈ {64, 112, 128, 256} — the serving path.  wgmma on
+        the tensor cores, TMA loads into a K/V ring, a producer warp and
+        two consumer warpgroups.
+      - ``cuda_core`` (``csrc/flash_attention.cu``): every other input
+        (f32 or mixed types, other head dims).  f32 FMAs on the CUDA
+        cores, no TF32: the f32 bounds rest on it.
+    The route depends on dtypes and shapes only, never on a failure.
+    ``flash_attention.launches`` counts launches of both kernels,
+    ``flash_attention.launches_by_route`` each route's.
   * `flash_attention_reference` — the plain PyTorch version: the blocked
     online softmax of `repro.kernels.ref._flash_fwd_blocks`, every KV block
     of every Q block in order.
@@ -32,6 +39,21 @@ from repro_torch.kernels.ref import NEG_INF, keep_mask
 
 _MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the tensor-core kernel takes (every one in configs/)
+TC_HEAD_DIMS = (64, 112, 128, 256)
+ROUTES = ("tensor_core", "cuda_core")
+
+
+def flash_route(device_type: str, q_dtype, kv_dtype, d: int, dv: int) -> str:
+    """Which version `flash_attention` runs for these inputs: ``"plain"``
+    on the CPU; on a card ``"tensor_core"`` when q, k and v are all bf16
+    and d = dv is one of `TC_HEAD_DIMS`, else ``"cuda_core"``."""
+    if device_type == "cpu":
+        return "plain"
+    if (q_dtype == kv_dtype == torch.bfloat16 and d == dv
+            and d in TC_HEAD_DIMS):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _check(q, k, v, q_offset) -> None:
@@ -73,18 +95,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: [B, Tq, H, d]; k, v: [B, Tk, KV, d(v)].  Returns [B, Tq, H, dv]
     in q's dtype (see the module docstring)."""
     _check(q, k, v, q_offset)
-    if q.device.type == "cpu":
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    route = flash_route(q.device.type, q.dtype, k.dtype, q.shape[-1],
+                        v.shape[-1])
+    if route == "plain":
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window, q_offset=q_offset,
                                          scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
-    return _launch(q, k, v, causal, window, q_offset, _scale(q.shape[-1],
-                                                             scale))
+    launch = _launch_tc if route == "tensor_core" else _launch
+    out = launch(q, k, v, causal, window, q_offset,
+                 _scale(q.shape[-1], scale))
+    flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
+    return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def reset_launches() -> None:
+    """Set the launch counts of both routes to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_route.update(dict.fromkeys(ROUTES, 0))
 
 
 class _FlashArgs(ctypes.Structure):
@@ -113,7 +148,41 @@ def _launch(q, k, v, causal, window, q_offset, scale):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
-    flash_attention.launches += 1
+    return out
+
+
+class _FlashTcArgs(ctypes.Structure):
+    """Mirrors ``struct FlashTcArgs`` in csrc/flash_attention_tc.cu."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "B", "Tq", "Tk", "H", "KV", "d", "causal", "window", "q_offset")]
+        + [("scale", ctypes.c_float)])
+
+
+def _aligned(x):
+    """``x``, copied if its address is not 16-byte aligned (TMA's rule; a
+    contiguous slice can start anywhere)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch_tc(q, k, v, causal, window, q_offset, scale):
+    from repro_torch.kernels import _build
+
+    fn = _build.load("flash_attention_tc").flash_attention_tc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_FlashTcArgs)] + [ctypes.c_void_p] * 5
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    B, Tq, H, d = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    a = _FlashTcArgs(B=B, Tq=Tq, Tk=Tk, H=H, KV=KV, d=d,
+                     causal=int(bool(causal)), window=int(window),
+                     q_offset=q_offset, scale=scale)
+    out = torch.empty((B, Tq, H, d), dtype=q.dtype, device=q.device)
+    err = fn(ctypes.byref(a), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention tensor-core kernel launch "
+                           f"failed: cudaError_t {err}")
     return out
 
 

@@ -260,6 +260,89 @@ def test_cuda_ssd_matches_plain_version(cuda, mixed, B, T, H, N, P, dec_min,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,d,causal,window,q_offset", [
+    (8, 1024, 1024, 32, 32, 112, True, 0, 0),     # Zamba2-7B prefill
+    (8, 1024, 1024, 8, 1, 256, True, 0, 0),       # Gemma-2B prefill
+    (1, 300, 300, 6, 6, 64, True, 0, 0),
+    (2, 200, 333, 6, 3, 112, True, 48, 133),
+    (1, 190, 190, 8, 1, 128, False, 0, 0),
+    (2, 130, 257, 4, 2, 256, True, 0, 127),
+    (1, 64, 200, 3, 1, 112, True, 8, 300),        # the window empties rows
+    (1, 97, 97, 5, 5, 256, True, 16, 0),
+])
+def test_cuda_flash_tensor_core_route_matches_plain_version(
+        cuda, B, Tq, Tk, H, KV, d, causal, window, q_offset):
+    """bf16 at every tensor-core head dim, MHA / GQA / MQA, masks and
+    ragged edges: one launch, on the tensor-core route, within 2e-2."""
+    g = torch.Generator().manual_seed(Tq + d + H)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+               for s in ((B, Tq, H, d), (B, Tk, KV, d), (B, Tk, KV, d)))
+    before = dict(tfa.flash_attention.launches_by_route)
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    after = tfa.flash_attention.launches_by_route
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    assert after["cuda_core"] == before["cuda_core"]
+    ref = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
+    np.testing.assert_allclose(np_(out.float()), np_(ref.float()),
+                               atol=FLASH_ATOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,d", [
+    (torch.float32, torch.float32, 112), (torch.float32, torch.bfloat16, 112),
+    (torch.bfloat16, torch.bfloat16, 32), (torch.bfloat16, torch.float32, 64)])
+def test_cuda_flash_other_inputs_take_the_cuda_core_route(cuda, q_dtype,
+                                                         kv_dtype, d):
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn((2, 150, 4, d), generator=g).to(cuda, q_dtype)
+    k, v = (torch.randn((2, 150, 2, d), generator=g).to(cuda, kv_dtype)
+            for _ in range(2))
+    before = dict(tfa.flash_attention.launches_by_route)
+    out = tfa.flash_attention(q, k, v, window=40)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches_by_route["cuda_core"] == \
+        before["cuda_core"] + 1
+    assert tfa.flash_attention.launches_by_route["tensor_core"] == \
+        before["tensor_core"]
+    ref = tfa.flash_attention_reference(q, k, v, window=40)
+    np.testing.assert_allclose(np_(out.float()), np_(ref.float()),
+                               atol=FLASH_ATOL[q_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,N,P,inc,use_u,use_h0,mixed", [
+    (1, 7, 2, 6, 6, True, True, True, False),     # element-wise staging
+    (1, 96, 3, 20, 36, False, True, True, True),
+    (1, 64, 2, 64, 128, True, True, True, True),
+    (8, 1024, 112, 64, 64, True, False, False, True),  # Zamba2-7B prefill
+])
+def test_cuda_ssd_staging_paths_match_plain_version(cuda, B, T, H, N, P, inc,
+                                                    use_u, use_h0, mixed):
+    g = torch.Generator().manual_seed(T + N + P)
+    d = (0.9 + 0.099 * torch.rand((B, T, H, N), generator=g)).to(cuda)
+    b = (0.2 * torch.randn((B, T, H, N), generator=g)).to(cuda)
+    x = torch.randn((B, T, H, P), generator=g).to(cuda)
+    c = (0.2 * torch.randn((B, T, H, N), generator=g)).to(cuda)
+    if mixed:
+        x, c = x.to(torch.bfloat16), c.to(torch.bfloat16)
+    u = (0.1 * torch.randn((H, N), generator=g)).to(cuda) if use_u else None
+    h0 = torch.randn((B, H, N, P), generator=g).to(cuda) if use_h0 else None
+    before = tsm.ssd.launches
+    y, hT = tsm.ssd(d, b, x, c, u=u, h0=h0, include_current=inc)
+    torch.cuda.synchronize()
+    assert tsm.ssd.launches == before + 1
+    ry, rh = tsm.ssd_reference(d, b, x, c, u=u, h0=h0,
+                               chunk=tsm.chunk_for(T, 64),
+                               include_current=inc)
+    np.testing.assert_allclose(np_(y.float()), np_(ry.float()), atol=3e-5,
+                               rtol=2.0 ** -7 if mixed else 0)
+    np.testing.assert_allclose(np_(hT), np_(rh), atol=3e-5)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_wrappers_raise_on_wrong_device_or_dtype(cuda):
     q = torch.randn(1, 64, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="is on"):

@@ -125,3 +125,76 @@ def test_cost_counts_the_kept_pairs():
     assert c["ops"] == 2 * 4 * 36 * (2 * 16 + 2 * 16 + 4)
     assert c["bytes"] == 4 * (q.numel() + k.numel() + v.numel() + q.numel())
     assert flash_attention_cost(q, k, v, window=2)["pairs"] == 15
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 112, 128, 192, 256])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(BF16, BF16), (F32, F32),
+                                              (F32, BF16), (BF16, F32)])
+def test_route_rule_sends_only_all_bf16_to_the_tensor_cores(q_dtype,
+                                                           kv_dtype, d):
+    """The written rule: on a card, bf16 q, k and v with d = dv in
+    {64, 112, 128, 256} take the tensor-core kernel, everything else the
+    CUDA-core kernel; on the CPU the plain version."""
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, flash_route
+
+    tc = q_dtype == kv_dtype == BF16 and d in (64, 112, 128, 256)
+    assert (d in TC_HEAD_DIMS) == (d in (64, 112, 128, 256))
+    assert flash_route("cuda", q_dtype, kv_dtype, d, d) == (
+        "tensor_core" if tc else "cuda_core")
+    assert flash_route("cuda", q_dtype, kv_dtype, d, d // 2) == "cuda_core"
+    assert flash_route("cpu", q_dtype, kv_dtype, d, d) == "plain"
+
+
+def test_cpu_bf16_at_a_tensor_core_shape_runs_the_plain_version():
+    """A CPU tensor never reaches a kernel, whatever its route on a card;
+    `reset_launches` zeroes both routes' counts."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.flash_attention.launches_by_route["tensor_core"] += 3
+    fa.reset_launches()
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention.launches_by_route == {"tensor_core": 0,
+                                                    "cuda_core": 0}
+    q, k, v = (torch.from_numpy(a).to(BF16)
+               for a in _qkv(1, 70, 70, 4, 2, 112, seed=9))
+    out = flash_attention(q, k, v, window=16)
+    assert out.dtype == BF16
+    assert fa.flash_attention.launches == 0
+    torch.testing.assert_close(out, flash_attention_reference(q, k, v,
+                                                              window=16),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["half", "double", "d 320", "dv 288",
+                                  "heads 6 on 4", "kv types", "empty",
+                                  "not contiguous", "q_offset float"])
+def test_wrapper_rejects_inputs_neither_kernel_takes(case):
+    """What neither kernel (nor the plain version) takes raises before any
+    route is chosen: other dtypes, head dims past 256, H not a multiple of
+    KV, k and v of different types, empty or strided inputs."""
+    z = lambda *s, dt=F32: torch.zeros(s, dtype=dt)
+    q, k, v = z(1, 8, 4, 64), z(1, 8, 2, 64), z(1, 8, 2, 64)
+    kw = {}
+    if case == "half":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "double":
+        q = q.double()
+    elif case == "d 320":
+        q, k, v = z(1, 8, 4, 320), z(1, 8, 2, 320), z(1, 8, 2, 320)
+    elif case == "dv 288":
+        v = z(1, 8, 2, 288)
+    elif case == "heads 6 on 4":
+        q, k, v = z(1, 8, 6, 64), z(1, 8, 4, 64), z(1, 8, 4, 64)
+    elif case == "kv types":
+        k = k.to(BF16)
+    elif case == "empty":
+        q = z(1, 0, 4, 64)
+    elif case == "not contiguous":
+        q = z(1, 4, 8, 64).transpose(1, 2)
+    elif case == "q_offset float":
+        kw = {"q_offset": 1.0}
+    with pytest.raises((TypeError, ValueError)):
+        flash_attention(q, k, v, **kw)

@@ -58,7 +58,7 @@ def test_port_has_every_module_of_the_slice():
                 "models/transformer.py", "launch/steps.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
-                "flash_attention.cu", "ssd.cu"):
+                "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file(), src
 
@@ -93,10 +93,24 @@ def test_kernel_sources_use_pow_not_cbrt():
         assert "cbrt" not in src.read_text().replace("never cbrt", ""), src
 
 
-def test_kernel_sources_use_no_library_or_tensor_core_product():
-    """The kernels compute their products themselves in f32 on the CUDA
-    cores: no cuBLAS / cuDNN call, no tensor-core (TF32) instruction."""
-    for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"):
-        text = src.read_text().lower()
-        for word in ("cublas", "cudnn", "wmma", "mma.sync", "wgmma", "tf32"):
-            assert word not in text.replace("no tf32", ""), (src.name, word)
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+# the sources allowed tensor-core instructions: the bf16 flash attention
+# kernel, whose f32 twin (flash_attention.cu) and every other kernel keep
+# their products in f32 on the CUDA cores
+TENSOR_CORE_SOURCES = ("flash_attention_tc.cu",)
+
+
+@pytest.mark.parametrize("src", sorted(CSRC.glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_kernel_sources_use_no_library_or_tensor_core_product(src):
+    """No kernel calls a library (cuBLAS, cuDNN) or uses TF32; only the
+    tensor-core flash source issues tensor-core products (wgmma, which it
+    must), the others compute in f32 on the CUDA cores."""
+    text = src.read_text().lower().replace("no tf32", "")
+    banned = ["cublas", "cudnn", "tf32"]
+    if src.name not in TENSOR_CORE_SOURCES:
+        banned += ["wmma", "mma.sync", "wgmma"]
+    for word in banned:
+        assert word not in text, (src.name, word)
+    if src.name in TENSOR_CORE_SOURCES:
+        assert "wgmma.mma_async" in text, src.name

@@ -154,3 +154,52 @@ def test_cost_counts_bytes_once():
     per_chunk = (2 * 64 * 64 * 16 + 2 * 64 * 64 * 32 + 4 * 64 * 16 * 32
                  + 16 * 32 + 8 * 64 * 16)
     assert cost["ops"] == 2 * 2 * 2 * per_chunk
+
+
+@pytest.mark.parametrize("case", ["N 65", "P 129", "half", "x double",
+                                  "u shape", "h0 bf16", "not contiguous",
+                                  "empty"])
+def test_wrapper_rejects_inputs_the_kernel_does_not_take(case):
+    """The kernel's limits (N <= 64, P <= 128; f32 or bf16 operands, f32
+    u and h0) are the wrapper's: what it does not take raises, on the CPU
+    as on a card, before any version runs."""
+    d, b, x, c = _t(*_inputs(1, 16, 2, 8, 8, 0.9))
+    kw = {}
+    if case == "N 65":
+        d, b, _, c = _t(*_inputs(1, 16, 2, 65, 8, 0.9))
+    elif case == "P 129":
+        x = torch.zeros(1, 16, 2, 129)
+    elif case == "half":
+        d = d.half()
+    elif case == "x double":
+        x = x.double()
+    elif case == "u shape":
+        kw = {"u": torch.zeros(2, 9)}
+    elif case == "h0 bf16":
+        kw = {"h0": torch.zeros(1, 2, 8, 8, dtype=torch.bfloat16)}
+    elif case == "not contiguous":
+        c = torch.zeros(1, 2, 16, 8).transpose(1, 2)
+    elif case == "empty":
+        d, b, x, c = (t[:, :0] for t in (d, b, x, c))
+    before = ssd.launches
+    with pytest.raises((TypeError, ValueError)):
+        ssd(d, b, x, c, **kw)
+    assert ssd.launches == before
+
+
+def test_cpu_takes_the_plain_version_at_the_kernel_shapes():
+    """On the CPU the wrapper is the plain version, bit for bit, at mixed
+    operand types and at sizes the kernel stages element by element (N, P
+    not multiples of 4; T = 7, a chunk of 7)."""
+    d, b, x, c = _t(*_inputs(1, 7, 2, 6, 6, 0.9, seed=8))
+    u = torch.full((2, 6), 0.05)
+    h0 = torch.ones(1, 2, 6, 6)
+    before = ssd.launches
+    y, h = ssd(d, b, x.to(torch.bfloat16), c.to(torch.bfloat16), u=u, h0=h0,
+               include_current=False)
+    ry, rh = ssd_reference(d, b, x.to(torch.bfloat16), c.to(torch.bfloat16),
+                           u=u, h0=h0, chunk=7, include_current=False)
+    assert ssd.launches == before
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    torch.testing.assert_close(y, ry, rtol=0, atol=0)
+    torch.testing.assert_close(h, rh, rtol=0, atol=0)
