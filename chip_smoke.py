@@ -7,10 +7,12 @@ Phase 0  prints the card's name and power limit (nvidia-smi) and builds the
          six kernel sources of the checkout, one nvcc each, in parallel.
 Phase A  the `fleet_step` CUDA kernel against its plain PyTorch version
          (`fleet_step_reference`) on the card at 1 tile × 4,096 packages
-         (serve --stream's shape: no Γ, 32-package blocks), 4 tiles × 200
-         and 47 tiles × 64, T = 512, in each of the four control modes —
-         traces and state within rtol = atol = 1e-5, event counts and the
-         reactive_poll latch exact.
+         (serve --stream's shape: no Γ), 4 tiles × 200 and 47 tiles × 64,
+         T = 512, in each of the four control modes — traces and state
+         within rtol = atol = 1e-5, event counts and the reactive_poll latch
+         exact — each window timed beside its bound and PR 14's time
+         (FLEET_PREV_WINDOW_MS); the kernels' registers and spills (nvcc
+         -Xptxas -v).
 Phase B  the main path: `FleetEngine(SchedulerConfig(n_tiles=47, mode="v24"),
          backend="fused")` on the card (the 47-tile Ponte-Vecchio package),
          4,096 packages, a 2,048-step diurnal swell of ρ from 0.9 to 2.7 and
@@ -18,12 +20,13 @@ Phase B  the main path: `FleetEngine(SchedulerConfig(n_tiles=47, mode="v24"),
          8 kernel launches, finite telemetry, released + throttled = ΣR_tok
          per window, the controller throttling in the middle flushes.  Then,
          on the peak window from its warm state, the kernel held against
-         the plain version, its time beside its bound and the plain
-         version's time, and a per-stage breakdown of one flush.
+         the plain version, its time beside its time before the redesign
+         (FLEET_PREV_MS), its bound, registers and the plain version's
+         time, and a per-stage breakdown of one flush.
 Phase C  `repro_torch.launch.serve --stream --fleet 4096 --fleet-backend fused
          --waves 4 --gen 256`, in process: 4 flushes, 4 launches; then the
          kernel held against the plain version on serve's first window
-         [256, 1 tile, 4,096].
+         [256, 1 tile, 4,096], timed beside its bound and PR 14's time.
 Phase D  the `thermal_conv` CUDA kernel against its plain version
          (`thermal_conv_reference`): 8 tiles × 4,000 steps with the 8-tile
          Γ of examples/multi_tile_sim.py, 47 tiles with the Ponte-Vecchio Γ,
@@ -36,11 +39,13 @@ Phase D  the `thermal_conv` CUDA kernel against its plain version
 Phase E  the `grid_conv` CUDA kernel against its plain version
          (`grid_conv_reference`, the reference's adjacency operands) at 1, 2
          and 47 tiles × grid_substeps 1, 2 × grid_contrast 0, 0.5, and at
-         every patch edge it compiles (grid_cells 2..16, 5 tiles).  Then its
-         main path at full width: `GridPlant(n_tiles=47).simulate` over
+         every patch edge it compiles (grid_cells 2..16, 5 tiles) — the
+         final state bit-exact, dts within 1e-5, one launch per trace.  Then
+         its main path at full width: `GridPlant(n_tiles=47).simulate` over
          90,000 steps (state [8, 376]) — held against the plain version,
-         timed beside its roofline bound and its dependence floor — and the
-         ROM_PEAK_TOL gate there: the fitted ROM's peak ΔT (through
+         timed beside its time before the redesign (GRID_PREV_MS), its
+         roofline bound, its dependence-floor estimate and its registers —
+         and the ROM_PEAK_TOL gate there: the fitted ROM's peak ΔT (through
          `thermal_conv`) within 0.02 of the grid's.
 Phase F  the plant ladder in the fleet (per-step path): 47-tile v24 fleets
          of 4,096 packages with plant="grid" on the fused backend and
@@ -104,9 +109,12 @@ PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 # dependent-issue latencies ASSUMED (not measured) for the estimate of the
 # grid recurrence's dependence floor, printed beside its times but not in
-# the kernels line: an f32 add or multiply, and a warp shuffle, in SM cycles
+# the kernels line: an f32 add or multiply, and a warp shuffle, in SM cycles;
+# one substep's chain is a shuffle and 8 dependent f32 operations (w·left,
+# + w·right, + vert, − deg·s, κ·, + (d − ĝ·s), r·, s +)
 FP32_LATENCY_CYCLES = 4
 SHFL_LATENCY_CYCLES = 24
+GRID_CHAIN_FP32_OPS = 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
            "flash_attention_tc", "ssd")
@@ -126,6 +134,28 @@ SSD_MAIN = (8, 1024, 112, 64, 64)
 # flash (f32 FMAs on the CUDA cores) by (H, d), then ssd (unpipelined)
 FLASH_FIRST_MS = {(32, 112): 5.792, (8, 256): 4.047}
 SSD_FIRST_MS = 3.180
+# the versions of fleet_step and grid_conv before their redesign, at their
+# main-path shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table):
+# fleet_step per [256, 47, 4,096] peak window, grid_conv per [90,000, 47]
+FLEET_PREV_MS = 3.430
+GRID_PREV_MS = 19.386
+# PR 14's fleet_step at the other windows timed here — Phase A's by (mode,
+# tiles, packages) at T = 512, and serve --stream's first window — the mean
+# of its two times in scripts/kernel_ab.py against PR 14's source, one call
+# (NVIDIA H100 80GB HBM3, 700 W)
+FLEET_PREV_WINDOW_MS = {
+    ("v24", 1, 4096): 0.697, ("reactive", 1, 4096): 0.402,
+    ("reactive_poll", 1, 4096): 0.571, ("off", 1, 4096): 0.447,
+    ("v24", 4, 200): 1.169, ("reactive", 4, 200): 0.507,
+    ("reactive_poll", 4, 200): 0.623, ("off", 4, 200): 0.489,
+    ("v24", 47, 64): 2.256, ("reactive", 47, 64): 0.837,
+    ("reactive_poll", 47, 64): 0.939, ("off", 47, 64): 0.878,
+    "serve": 0.433,
+}
+# serve --stream as Phase C runs it: 1,024 steps of a 4,096-package 1-tile
+# fleet in 4 flushes
+SERVE_STREAM_ARGV = ["--stream", "--fleet", "4096", "--fleet-backend",
+                     "fused", "--waves", "4", "--gen", "256"]
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
               "--waves", "3", "--fleet", "64"]
 F32_CHECK = (2, 128)
@@ -183,6 +213,85 @@ def max_err(out, ref, where: str, rtol: float = TOL["rtol"],
     return err
 
 
+def registers(name: str, kernel: str = "") -> str:
+    """`nvcc -Xptxas -v`'s registers and spill bytes of each kernel in the
+    library ``name`` whose mangled name contains ``kernel``, each named by
+    its template arguments (``<2, true>``)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    def args(mangled: str) -> str:
+        vals = re.findall(r"L([ib])(\d+)E", mangled.split("kernelI", 1)[-1]
+                          .split("Ev", 1)[0])
+        return "<" + ", ".join(v if t == "i" else ("true" if v == "1" else
+                                                    "false")
+                               for t, v in vals) + ">"
+
+    return "; ".join(
+        f"{args(k)}: {u['registers']} registers, {u['spill_stores']} B "
+        f"spill stores, {u['spill_loads']} B spill loads"
+        for k, u in sorted(_build.resource_usage(name).items())
+        if kernel in k)
+
+
+def fleet_trace(n_tiles: int, n: int, steps: int):
+    """The reference's fleet trace (examples/fleet_sim.py) as [T, n, tiles]
+    f32 numpy: a diurnal swell over the paper's density domain plus
+    per-(package, tile) process jitter — cool at both ends, throttling for
+    part of the fleet mid-way."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    swell = 0.9 + 1.8 * np.sin(
+        np.linspace(0.0, np.pi, steps, dtype=np.float32)) ** 2
+    jitter = 0.2 * rng.standard_normal((n, n_tiles)).astype(np.float32)
+    return np.clip(swell[:, None, None] + jitter, 0.9, 2.7).astype(np.float32)
+
+
+def warm_window(backend, state0, trace, flush: int, peak: int):
+    """(args, kwargs) of `fleet_step` on flush ``peak`` of ``trace`` from
+    the warm state the stream reaches there."""
+    warm = state0
+    for i in range(peak):
+        warm = backend.run_block(
+            warm, backend.put_trace(trace[i * flush:(i + 1) * flush]))[0]
+    chunk = backend.put_trace(trace[peak * flush:(peak + 1) * flush])
+    args, kwargs = backend.kernel_inputs(warm, chunk)
+    return warm, chunk, args, kwargs
+
+
+def fleet_window(dev, mode: str, n_tiles: int, n: int, t: int, seed: int):
+    """(kernel args, kwargs) of `fleet_step` for one Phase A window: a fresh
+    fleet state and a seeded uniform density trace over the paper's
+    domain."""
+    import torch
+
+    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.fleet.backends.fused import FusedBackend
+
+    sched = ThermalScheduler(SchedulerConfig(n_tiles=n_tiles, mode=mode),
+                             device=dev)
+    backend = FusedBackend(sched)
+    state = backend.init(n)._replace(step=torch.tensor(5, dtype=torch.int32))
+    g = torch.Generator().manual_seed(seed)
+    rho = (0.9 + 1.8 * torch.rand((t, n, n_tiles), generator=g)).to(dev)
+    return backend.kernel_inputs(state, rho)
+
+
+def serve_window(dev, trace):
+    """(kernel args, kwargs) of `fleet_step` on the first window of `serve
+    --stream`'s density trace (SERVE_STREAM_ARGV): 1 tile, no Γ, from a
+    fresh fleet."""
+    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.fleet.backends.fused import FusedBackend
+
+    backend = FusedBackend(ThermalScheduler(
+        SchedulerConfig(n_tiles=1, mode="v24", step_ms=5.0), device=dev))
+    return backend.kernel_inputs(backend.init(trace.shape[1]),
+                                 backend.put_trace(trace[:256]))
+
+
 def main() -> None:
     kernel_src = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     if not (kernel_src / "fleet_step.cu").is_file():
@@ -197,9 +306,8 @@ def main() -> None:
     dev = torch.device("cuda")
 
     from repro_torch.core.density import rtok_from_rho
-    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.fleet import FleetEngine, chunk_source, stream
-    from repro_torch.fleet.backends.fused import FusedBackend
     from repro_torch.kernels import _build
     from repro_torch.kernels import fleet_step as fs
     from repro_torch.launch import serve
@@ -241,44 +349,32 @@ def main() -> None:
         return d["throttled_mtps"] / (d["released_mtps"]
                                       + d["throttled_mtps"])
 
-    def window(mode: str, n_tiles: int, n: int, t: int, seed: int):
-        """(backend, kernel args, kwargs) for one window from a fresh fleet
-        state and a seeded uniform density trace over the paper's domain."""
-        sched = ThermalScheduler(SchedulerConfig(n_tiles=n_tiles, mode=mode),
-                                 device=dev)
-        backend = FusedBackend(sched)
-        state = backend.init(n)._replace(step=torch.tensor(5, dtype=torch.int32))
-        g = torch.Generator().manual_seed(seed)
-        rho = (0.9 + 1.8 * torch.rand((t, n, n_tiles), generator=g)).to(dev)
-        args, kwargs = backend.kernel_inputs(state, rho)
-        return backend, args, kwargs
-
     # ---------------------------------------------------------------- phase A
     max_err = 0.0
     for n_tiles, n in ((1, 4096), (4, 200), (47, 64)):
         for mode in ("v24", "reactive", "reactive_poll", "off"):
-            _, args, kwargs = window(mode, n_tiles, n, 512, seed=n_tiles)
+            args, kwargs = fleet_window(dev, mode, n_tiles, n, 512,
+                                        seed=n_tiles)
             out = fs.fleet_step(*args, **kwargs)
             torch.cuda.synchronize()
             ref = fs.fleet_step_reference(*args, **kwargs)
             where = f"phase A {mode} {n_tiles} tiles x {n} pkgs"
             err = compare(out, ref, where)
             max_err = max(max_err, err)
+            ms = event_ms(lambda: fs.fleet_step(*args, **kwargs), 5)
+            b_ms, b_by = bound(*fs.fleet_step_cost(args[0], args[6], args[7]))
             print(f"[phaseA] {mode:13s} {n_tiles:2d} tiles x {n:4d} pkgs "
                   f"T=512: max_abs_err {err:.3e}, events "
-                  f"{int(out[4].sum())} == plain {int(ref[4].sum())}")
+                  f"{int(out[4].sum())} == plain {int(ref[4].sum())}; "
+                  f"kernel {ms:.4f} ms (median of 5, CUDA events; "
+                  f"{FLEET_PREV_WINDOW_MS[(mode, n_tiles, n)]} ms before its "
+                  f"redesign), bound {b_ms:.4f} ms by {b_by}")
+    print(f"[phaseA] fleet_step.cu (nvcc -Xptxas -v): "
+          f"{registers('fleet_step')}")
 
     # ---------------------------------------------------------------- phase B
-    # the reference's fleet trace (examples/fleet_sim.py): a diurnal swell
-    # over the paper's density domain plus per-(package, tile) process
-    # jitter — cool at both ends, throttling for part of the fleet mid-way
     n_tiles, n, steps, flush = 47, 4096, 2048, 256
-    rng = np.random.default_rng(0)
-    swell = 0.9 + 1.8 * np.sin(
-        np.linspace(0.0, np.pi, steps, dtype=np.float32)) ** 2
-    jitter = 0.2 * rng.standard_normal((n, n_tiles)).astype(np.float32)
-    trace = np.clip(swell[:, None, None] + jitter, 0.9, 2.7).astype(
-        np.float32)                                       # [T, n, tiles]
+    trace = fleet_trace(n_tiles, n, steps)                # [T, n, tiles]
     eng = FleetEngine(SchedulerConfig(n_tiles=n_tiles, mode="v24"),
                       backend="fused")
     check(eng.device.type == "cuda", f"engine on {eng.device}, not cuda")
@@ -338,12 +434,8 @@ def main() -> None:
     # kernel's arithmetic op by op)
     backend = eng.backend_impl
     peak = 3
-    warm = state0
-    for i in range(peak):
-        warm = backend.run_block(
-            warm, backend.put_trace(trace[i * flush:(i + 1) * flush]))[0]
-    chunk = backend.put_trace(trace[peak * flush:(peak + 1) * flush])
-    args, kwargs = backend.kernel_inputs(warm, chunk)
+    warm, chunk, args, kwargs = warm_window(backend, state0, trace, flush,
+                                            peak)
 
     out = fs.fleet_step(*args, **kwargs)                 # warm
     kernel_ms = event_ms(lambda: fs.fleet_step(*args, **kwargs), 10)
@@ -358,7 +450,8 @@ def main() -> None:
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[phaseB] fleet_step [{flush}, {n_tiles}, {n}]: kernel "
-          f"{kernel_ms:.3f} ms (median of 10, CUDA events), plain "
+          f"{kernel_ms:.4f} ms (median of 10, CUDA events; "
+          f"{FLEET_PREV_MS} ms before its redesign), plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
           f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
           f"max_abs_err vs plain {err:.3e} on flush {peak + 1} from its "
@@ -390,11 +483,13 @@ def main() -> None:
         "flush_ms": host_ms(lambda: eng.run_block(warm, chunk)[1].as_dict()),
     }
     print("[phaseB] breakdown of one flush: " + json.dumps(breakdown))
+    print(f"[phaseB] fleet_step.cu (nvcc -Xptxas -v; 47 coupled v24 tiles "
+          f"take the main-path kernel with 2 tiles a thread, <2, true>): "
+          f"{registers('fleet_step', 'ILi2ELb1E')}")
 
     # ---------------------------------------------------------------- phase C
     fs.fleet_step.launches = 0
-    res = serve.main(["--stream", "--fleet", "4096", "--fleet-backend",
-                      "fused", "--waves", "4", "--gen", "256"])
+    res = serve.main(SERVE_STREAM_ARGV)
     torch.cuda.synchronize()
     check(fs.fleet_step.launches == 4,
           f"serve --stream launched fleet_step {fs.fleet_step.launches} "
@@ -411,21 +506,23 @@ def main() -> None:
     # serve's own shape on the card: 1 tile, no Γ (hint = max(P_ahead,
     # P_now), no slew cap), 32-package blocks — its first window from a
     # fresh fleet, kernel against the plain version
-    c_backend = FusedBackend(ThermalScheduler(
-        SchedulerConfig(n_tiles=1, mode="v24", step_ms=5.0), device=dev))
     c_trace = res["trace"]
     check(c_trace.shape == (1024, 4096, 1),
           f"serve --stream trace has shape {c_trace.shape}")
-    args, kwargs = c_backend.kernel_inputs(
-        c_backend.init(4096), c_backend.put_trace(c_trace[:256]))
+    args, kwargs = serve_window(dev, c_trace)
     out = fs.fleet_step(*args, **kwargs)
     torch.cuda.synchronize()
     ref = fs.fleet_step_reference(*args, **kwargs)
     err = compare(out, ref, "serve --stream window")
     max_err = max(max_err, err)
+    ms = event_ms(lambda: fs.fleet_step(*args, **kwargs), 10)
+    b_ms, b_by = bound(*fs.fleet_step_cost(args[0], args[6], args[7]))
     print(f"[phaseC] fleet_step [256, 1, 4096] on serve's first window: "
           f"max_abs_err vs plain {err:.3e}, events {int(out[4].sum())} == "
-          f"plain {int(ref[4].sum())}")
+          f"plain {int(ref[4].sum())}; kernel {ms:.4f} ms (median of 10, "
+          f"CUDA events; {FLEET_PREV_WINDOW_MS['serve']} ms before its "
+          f"redesign), bound {b_ms:.4f} ms by {b_by}; "
+          f"{registers('fleet_step', 'ILi1ELb0E')}")
 
     tc_entry = phase_d(dev)
     gc_entry = phase_e(dev)
@@ -577,6 +674,20 @@ def phase_e(dev) -> dict:
             plant.readout, s0, r=float(plant.r), kappa=float(plant.kappa),
             substeps=plant.substeps)
 
+    def simulate(plant, p, s0, where):
+        """One trace on the kernel: exactly one launch."""
+        before = tc.grid_conv.launches
+        out = plant.simulate(p, s0)
+        torch.cuda.synchronize()
+        check(tc.grid_conv.launches == before + 1,
+              f"phase E {where}: {tc.grid_conv.launches - before} launches")
+        return out
+
+    def state_exact(out, ref, where):
+        check(torch.equal(out[1], ref[1]), f"phase E {where}: final state "
+              f"not bit-exact ({float((out[1] - ref[1]).abs().max()):.3e})")
+        return True
+
     err = 0.0
     for nt in (1, 2, 47):
         for sub in (1, 2):
@@ -586,15 +697,14 @@ def phase_e(dev) -> dict:
                     grid_contrast=contrast), FINGERPRINT, device=dev)
                 p = power(2000, nt)
                 s0 = plant.init_state(())
-                out = plant.simulate(p, s0)
-                torch.cuda.synchronize()
-                ref = plain(plant, p, s0)
                 where = (f"{nt} tiles, substeps {sub}, contrast {contrast}")
+                out = simulate(plant, p, s0, where)
+                ref = plain(plant, p, s0)
                 e = max_err(out, ref, f"phase E {where}")
                 err = max(err, e)
                 print(f"[phaseE] {where}, T=2000: max_abs_err vs plain "
                       f"{e:.3e}, state bit-exact "
-                      f"{torch.equal(out[1], ref[1])}")
+                      f"{state_exact(out, ref, where)}, 1 launch")
 
     # every patch edge grid_conv.cu compiles (2..16) at 5 tiles: 32 // edge
     # tiles share a warp, so most edges leave masked lanes or a partly
@@ -606,14 +716,14 @@ def phase_e(dev) -> dict:
         p = power(300, 5)
         s0 = 10.0 * torch.rand((plant.gy, plant.W), generator=gen,
                                device=dev)
-        out = plant.simulate(p, s0)
-        torch.cuda.synchronize()
+        where = f"grid_cells {cells}"
+        out = simulate(plant, p, s0, where)
         ref = plain(plant, p, s0)
-        e = max_err(out, ref, f"phase E grid_cells {cells}")
+        e = max_err(out, ref, f"phase E {where}")
         err = max(err, e)
         print(f"[phaseE] grid_cells {cells} (5 tiles, T=300): max_abs_err "
               f"vs plain {e:.3e}, state bit-exact "
-              f"{torch.equal(out[1], ref[1])}")
+              f"{state_exact(out, ref, where)}, 1 launch")
 
     # the main path at full width, through the plant's whole-trace entry
     nt, t = GRID_FULL
@@ -625,13 +735,15 @@ def phase_e(dev) -> dict:
     dts, state = plant.simulate(p)
     torch.cuda.synchronize()
     launches = tc.grid_conv.launches
-    check(launches >= 1, "the grid_conv main path launched no kernel")
+    check(launches == 1, f"the grid_conv main path launched the kernel "
+          f"{launches} times, want 1")
     check(tuple(state.shape) == (plant.gy, plant.W)
           and bool(torch.isfinite(dts).all()),
           f"grid_conv main path: state {tuple(state.shape)}, dts finite "
           f"{bool(torch.isfinite(dts).all())}")
     ref, plain_ms = timed(lambda: plain(plant, p, plant.init_state(())))
     e = max_err((dts, state), ref, "phase E main path")
+    state_exact((dts, state), ref, "main path")
     err = max(err, e)
     kernel_ms = event_ms(lambda: plant.simulate(p), 10)
     cost = tc.grid_conv_cost(t, nt, plant.gy, plant.gx, plant.substeps)
@@ -641,18 +753,23 @@ def phase_e(dev) -> dict:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     clock_mhz = float(smi.stdout.split()[0])
-    chain = SHFL_LATENCY_CYCLES + 7 * FP32_LATENCY_CYCLES
+    chain = SHFL_LATENCY_CYCLES + GRID_CHAIN_FP32_OPS * FP32_LATENCY_CYCLES
     floor_ms = t * plant.substeps * chain / (clock_mhz * 1e3)
     print(f"[phaseE] grid_conv [{t}, {nt}] state [{plant.gy}, {plant.W}] "
           f"main path (GridPlant.simulate): {launches} launch(es), "
           f"max_abs_err vs plain {e:.3e}, state bit-exact "
-          f"{torch.equal(state, ref[1])}; kernel {kernel_ms:.3f} ms (median "
-          f"of 10, CUDA events), plain {plain_ms:.1f} ms (one run); "
+          f"{torch.equal(state, ref[1])}; kernel {kernel_ms:.4f} ms (median "
+          f"of 10, CUDA events; {GRID_PREV_MS} ms before its redesign, "
+          f"{kernel_ms * clock_mhz * 1e3 / (t * plant.substeps):.1f} cycles "
+          f"per substep at {clock_mhz:.0f} MHz), plain {plain_ms:.1f} ms "
+          f"(one run); "
           f"roofline bound {bound_ms:.5f} ms by {bound_by} "
           f"({cost['bytes'] / 1e6:.2f} MB, {cost['ops'] / 1e9:.3f} GFLOP); "
           f"dependence floor, an estimate from assumed latencies (not "
           f"measured): {floor_ms:.3f} ms ({t} steps x {chain} cycles at "
-          f"{clock_mhz:.0f} MHz)")
+          f"{clock_mhz:.0f} MHz); grid_conv.cu (nvcc -Xptxas -v, the "
+          f"{plant.gy}-cell kernel): "
+          f"{registers('grid_conv', f'ILi{plant.gy}E')}")
 
     # ROM_PEAK_TOL gate at full width: the fitted bank through thermal_conv
     rom = FittedROMPlant(cfg, FINGERPRINT, device=dev)

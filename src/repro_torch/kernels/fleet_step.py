@@ -8,8 +8,8 @@ reactive / reactive_poll / off control law with the +0.05 slew cap, the
 n-pole plant, and the event count over the package's tiles.
 
   * `fleet_step` — the wrapper.  On CUDA tensors it launches the hand-written
-    Hopper kernel (``csrc/fleet_step.cu``, one launch per window, all state
-    on chip for the whole window) or raises; on CPU tensors it runs
+    Hopper kernel (``csrc/fleet_step.cu``, one launch per window, the state
+    in registers for the whole window) or raises; on CPU tensors it runs
     `fleet_step_reference`.  ``fleet_step.launches`` counts kernel launches.
   * `fleet_step_reference` — the plain PyTorch version: a Python loop over T
     in the kernel's op order and layout, the CPU twin the tests hold to the
@@ -37,7 +37,7 @@ from repro_torch import fma_f32, pow_f32
 
 _MODES = {"v24": 0, "reactive": 1, "reactive_poll": 2, "off": 3}
 _MAX_POLES = 4
-_MAX_TILES = 128     # 8 packages × 128 tiles = 1,024 threads per block
+_MAX_TILES = 128     # the kernel's 8 tiles a thread × 16 warps
 
 
 @dataclasses.dataclass(frozen=True)

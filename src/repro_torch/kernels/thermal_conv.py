@@ -39,7 +39,7 @@ from repro_torch.core.coupling import apply_coupling
 
 _MAX_POLES = 8
 _MAX_CONV_TILES = 2048   # Γ rows and two P blocks fit one block's shared memory
-_MAX_GRID_CELLS = 16     # cells per tile edge (a column is held in registers)
+_MAX_GRID_CELLS = 16     # cells per tile edge (a lane's rows in registers)
 
 
 # ------------------------------------------------------------ thermal_conv

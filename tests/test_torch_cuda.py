@@ -43,8 +43,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(mode, nt, n, t, device, seed=1):
-    sched = ThermalScheduler(SchedulerConfig(n_tiles=nt, mode=mode),
+def _inputs(mode, nt, n, t, device, seed=1, **cfg):
+    sched = ThermalScheduler(SchedulerConfig(n_tiles=nt, mode=mode, **cfg),
                              device=device)
     params = FusedBackend(sched).params
     g = torch.Generator().manual_seed(seed)
@@ -189,6 +189,95 @@ def test_cuda_grid_conv_every_patch_edge(cuda, cells):
         substeps=plant.substeps)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(np_(a), np_(b), **TOL)
+
+
+def _fleet_matches_plain(params, args, thr0, step0=3):
+    """One `fleet_step` launch against the plain version: traces and state
+    within TOL (NaN where the plain version has NaN), events and latch
+    exact."""
+    before = tfs.fleet_step.launches
+    out = tfs.fleet_step(*args, params, thr0=thr0, step0=step0)
+    torch.cuda.synchronize()
+    assert tfs.fleet_step.launches == before + 1
+    ref = tfs.fleet_step_reference(*args, params, thr0=thr0, step0=step0)
+    for a, b in zip(out[:4], ref[:4]):
+        np.testing.assert_allclose(np_(a), np_(b), **TOL)
+    np.testing.assert_array_equal(np_(out[4]), np_(ref[4]))
+    if thr0 is not None:
+        np.testing.assert_array_equal(np_(out[5]), np_(ref[5]))
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_cuda_fleet_step_non_finite_rho_matches_plain_version(cuda, mode,
+                                                              bad):
+    """A NaN or inf ρ in one tile of a few packages (one at step 0): the
+    dense product's 0·inf / 0·NaN terms reach every row of those packages
+    in the plain version, and the kernel's sparse Γ walk must give the same
+    (it takes the dense walk for that package and step)."""
+    params, args, thr0 = _inputs(mode, 47, 64, 40, cuda)
+    args[0][0, 5, 9] = bad
+    args[0][7, 12, 3] = bad
+    args[0][21, 40, 50] = -bad
+    _, ref = _fleet_matches_plain(params, args, thr0)
+    assert not bool(torch.isfinite(ref[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v24", "reactive"])
+def test_cuda_fleet_step_dense_and_diagonal_gamma_rows(cuda, mode):
+    """A Γ with one fully dense row, one row with no off-diagonal entry and
+    one column with no entry at all: the walk's row lengths run from 1 to
+    47."""
+    params, args, thr0 = _inputs(mode, 47, 96, 48, cuda)
+    g = args[6].clone()
+    gen = torch.Generator().manual_seed(3)
+    g[3] = (0.01 + 0.02 * torch.rand(47, generator=gen)).to(cuda)
+    g[3, 3] = 1.0
+    g[11] = 0.0
+    g[11, 11] = 1.0
+    g[:, 20] = 0.0
+    _fleet_matches_plain(params, args[:6] + (g.contiguous(),), thr0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_fleet_step_at_the_largest_tile_count(cuda, mode):
+    """The most tiles the wrapper accepts (tfs._MAX_TILES), where a thread
+    carries the most tiles."""
+    params, args, thr0 = _inputs(mode, tfs._MAX_TILES, 40, 36, cuda)
+    _fleet_matches_plain(params, args, thr0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v24", "reactive"])
+@pytest.mark.parametrize("nt", [4, 47])
+@pytest.mark.parametrize("exponent", [2.0, 2.5])
+def test_cuda_fleet_step_other_power_laws(cuda, mode, nt, exponent):
+    """P ∝ f² (x·x) and a non-integer law (powf) run the general kernel
+    (<TPT, false>), not the main path's cubic one: its law's one pow and
+    P_prev = P_now·f^e, coupled v24 and reactive."""
+    params, args, thr0 = _inputs(mode, nt, 96, 48, cuda,
+                                 power_exponent=exponent)
+    _fleet_matches_plain(params, args, thr0)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_conv_state_carry_is_bit_exact(cuda):
+    """Two chained calls (the second from the first's final state) give the
+    one call's trace and final state bit for bit."""
+    plant = GridPlant(SchedulerConfig(n_tiles=47, plant="grid"), FINGERPRINT,
+                      device=cuda)
+    g = torch.Generator().manual_seed(11)
+    power = (80.0 + 40.0 * torch.rand((1000, 47), generator=g)).to(cuda)
+    state0 = (10.0 * torch.rand((plant.gy, plant.W), generator=g)).to(cuda)
+    full = plant.simulate(power, state0)
+    a = plant.simulate(power[:413].contiguous(), state0)
+    b = plant.simulate(power[413:].contiguous(), a[1])
+    assert torch.equal(torch.cat([a[0], b[0]]), full[0])
+    assert torch.equal(b[1], full[1])
 
 
 # ----------------------------------------------- the serving slice's kernels

@@ -4,6 +4,7 @@ itself is held against the plain version in tests/test_torch_cuda.py."""
 import ctypes
 import dataclasses
 import re
+import types
 from pathlib import Path
 
 import pytest
@@ -163,3 +164,58 @@ def test_installed_package_builds_into_user_cache(monkeypatch, tmp_path):
                         str(site / "repro_torch" / "kernels" / "_build.py"))
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     assert _build._build_dir() == tmp_path / "cache" / "repro_torch" / "build"
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    """The build keeps nvcc's -Xptxas -v report beside the library, and
+    `resource_usage` reads each kernel's registers and spills from it."""
+    assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]
+    lib = tmp_path / "fleet_step-0.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1kILi2ELb1EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kILi2ELb1EEv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 74 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1kILi1ELb0EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n")
+    monkeypatch.setattr(_build, "build", lambda name: lib)
+    assert _build.resource_usage("fleet_step") == {
+        "_Z1kILi2ELb1EEv": {"registers": 74, "spill_stores": 8,
+                            "spill_loads": 4},
+        "_Z1kILi1ELb0EEv": {"registers": 40, "spill_stores": 0,
+                            "spill_loads": 0}}
+
+
+def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
+    """A source nvcc refuses raises with nvcc's output and leaves no library
+    (nor its temporary file) in the build directory."""
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", lambda cmd, **kw:
+                        types.SimpleNamespace(returncode=1,
+                                              stdout="error: boom"))
+    with pytest.raises(RuntimeError, match="nvcc failed for k.cu:\nerror: boom"):
+        _build.compile_source(tmp_path / "k.cu", tmp_path / "k.so")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed for fleet_step.cu"):
+        _build.build("fleet_step")
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_loaded_from_swaps_the_library_within_the_block(monkeypatch,
+                                                         tmp_path):
+    """Inside `loaded_from`, `load` (and so the kernel's wrapper) gives the
+    other build; after the block, raised out of or not, the checkout's."""
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    monkeypatch.setattr(_build, "_LOADED", {"grid_conv": "checkout's"})
+    other = tmp_path / "grid_conv.so"
+    with _build.loaded_from("grid_conv", other):
+        assert _build.load("grid_conv") == ("lib", str(other))
+    assert _build.load("grid_conv") == "checkout's"
+    with pytest.raises(KeyError):
+        with _build.loaded_from("fleet_step", other):
+            raise KeyError("in the block")
+    assert "fleet_step" not in _build._LOADED

@@ -31,7 +31,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py"],
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
+    ROOT / "scripts" / "kernel_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
