@@ -86,6 +86,28 @@ Phase H  the serving slice end to end at full width in bf16: `serve`
          equals the same prefill on the plain versions within 1e-4 of each
          leaf's largest magnitude.
 
+Phase I  the §10 Monte-Carlo population and `fleet_step`'s per-package planes.
+         (a) The kernel against its plain version: heterogeneous rows (per
+         tile and per package) in every mode at 1, 8 and 47 tiles; the
+         degraded-fallback plane with NaN and ±inf spans in some packages'
+         ρ, the operator pins, and both with het rows, uncoupled (packed
+         layout) and coupled (wide layout); the wide layout at 129 and 200
+         tiles in every mode and 512 coupled v24 tiles — traces and state
+         within 1e-5, events, latches, counters and held ρ exact, one
+         launch per window.  (b) `serve --montecarlo 2000 --fleet-backend
+         fused` (3,000 steps, burn-in 400): exactly 6 `fleet_step`
+         launches (3 survey blocks × 2 surveys), per-trial statistics
+         within 1e-5 of the same draws on broadcast and of
+         `montecarlo.run_reference` on the card; the §10 lines and trials/s.
+         (c) 131,072 trials × 3,000 steps on fused, timed, with one survey
+         block's kernel time beside its bound at both population sizes.
+         (d) `serve --stream --node n3` on fused against broadcast, and a
+         degraded-fallback fleet of Phase B's size (4,096 packages × 47
+         coupled v24 tiles, 768 steps) under a `FaultPlan` (hint outage,
+         dropout, corruption) on fused against broadcast, with the window
+         of its outage timed in the wide layout beside the same clean
+         window in the wide and the packed layout.
+
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -159,6 +181,16 @@ SERVE_STREAM_ARGV = ["--stream", "--fleet", "4096", "--fleet-backend",
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
               "--waves", "3", "--fleet", "64"]
 F32_CHECK = (2, 128)
+# Phase I: the paper's population (trials, steps, burn-in), the fleet-scale
+# one, and the survey block the fused backend launches per chunk
+MC_STEPS, MC_BURN_IN, MC_CHUNK = 3000, 400, 1024
+MC_ARGV = ["--montecarlo", "2000", "--mc-steps", str(MC_STEPS),
+           "--fleet-backend", "fused"]
+MC_FLEET_TRIALS = 131_072
+# Phase I (d): the degraded-fallback stream (packages, tiles, steps,
+# flush: Phase B's fleet) and the step its fleet-wide hint outage starts
+FB_STREAM = (4096, 47, 768, 256)
+FB_OUTAGE = 300
 
 
 def fail(msg: str):
@@ -524,6 +556,7 @@ def main() -> None:
           f"redesign), bound {b_ms:.4f} ms by {b_by}; "
           f"{registers('fleet_step', 'ILi1ELb0E')}")
 
+    mc_entry = phase_i(dev, compare)
     tc_entry = phase_d(dev)
     gc_entry = phase_e(dev)
     phase_f(dev, trace[peak * flush:(peak + 1) * flush])
@@ -544,10 +577,311 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        **mc_entry,
     }, tc_entry, gc_entry, fa_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def plane_window(dev, mode: str, n_tiles: int, n: int, t: int, seed: int, *,
+                 het: int = 0, fallback: bool = False, mixed: bool = False,
+                 coupled: bool = True, bad: bool = False):
+    """(kernel args, kwargs) of `fleet_step` with per-package planes: het
+    rows with a tile axis of ``het`` (0: none), the fallback plane with
+    NaN / ±inf spans in three packages' ρ (``bad``), the operator pins."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.pdu_gate import exact_stats
+    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.fleet.backends.fused import FusedBackend
+
+    sched = ThermalScheduler(SchedulerConfig(n_tiles=n_tiles, mode=mode,
+                                             use_coupling=coupled),
+                             device=dev)
+    p = dataclasses.replace(FusedBackend(sched).params, fallback=fallback,
+                            mixed=mixed, stale_limit=3, recover=4)
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape, generator=g)
+    buf0 = u(0.9, 2.7, p.window, n_tiles, n)
+    rho = u(0.9, 2.7, t, n_tiles, n)
+    if bad:
+        rho[5:12, :, 1] = float("nan")
+        rho[7, 0, 2] = float("inf")
+        rho[20:22, -1, 3] = -float("inf")
+    put = lambda x: x.float().contiguous().to(dev)
+    args = (put(rho), put(buf0), put(u(5.0, 25.0, p.n_poles, n_tiles, n)),
+            put(torch.stack(exact_stats(buf0, 0, axis=0))),
+            put(u(0.5, 1.0, n_tiles, n)), put(torch.zeros(1, n)),
+            sched.gamma, p)
+    kw = {"step0": 7}
+    if mode == "reactive_poll" or fallback or mixed:
+        kw["thr0"] = put(torch.rand((n_tiles, n), generator=g) < 0.5)
+    if het:
+        # process variation around the fleet's own bank: τ × 0.7–1.4
+        # (decay a^(1/scale)), gain × 0.8–1.2, η = 1 − a_slow^ahead
+        a0 = torch.tensor(p.decay)[:, None, None]
+        decay = a0 ** (1.0 / u(0.7, 1.4, 1, het, n))
+        gain = torch.tensor(p.gain)[:, None, None] * u(0.8, 1.2, 1, het, n)
+        poll = torch.randint(1, 7, (1, het, n), generator=g)
+        kw["het"] = put(torch.cat([decay, gain,
+                                   (1 - decay[-1] ** p.ahead)[None],
+                                   gain.sum(0)[None], poll.float()]))
+    if fallback:
+        kw["fb0"] = (put(u(0.9, 2.7, n_tiles, n)),
+                     put(torch.randint(0, 5, (n,), generator=g)),
+                     put(torch.rand(n, generator=g) < 0.3))
+    if mixed:
+        kw["mode0"] = put(torch.rand(n, generator=g) < 0.5)
+    return args, kw
+
+
+def mc_block(dev, n_trials: int, mode: str):
+    """(kernel args, kwargs) of the first survey block `montecarlo.run`
+    launches for a population of ``n_trials`` on fused, in ``mode``."""
+    from repro_torch.core import dvfs, montecarlo, thermal
+
+    d = montecarlo.sample_trials(1, n_trials, MC_CHUNK, device=dev)
+    rth, tau, _, poll, traces = d
+    lanes = montecarlo._pack(n_trials)
+    n_pkg = n_trials // lanes
+    cfg = dvfs.DVFSConfig()
+    eng = montecarlo._engine(montecarlo._scheduler_cfg(
+        cfg, lanes, mode, "incremental"), montecarlo.FINGERPRINT, "fused",
+        dev)
+    shape = (n_pkg, lanes)
+    pkg = eng.sched.package_params(thermal.PoleParams(
+        decay=montecarlo._decay(tau, cfg.dt_ms).reshape(shape)[..., None],
+        gain=rth.reshape(shape)[..., None]), poll_ticks=poll.reshape(shape),
+        batch_shape=(n_pkg,))
+    trace = traces.mT.reshape(MC_CHUNK, n_pkg, lanes)
+    state = eng.init(n_pkg, pkg=pkg, filtration_fill=trace[0])
+    return eng.backend_impl.kernel_inputs(state, trace)
+
+
+def phase_i(dev, compare) -> dict:
+    """The §10 population and the per-package planes (module docstring);
+    returns the Monte-Carlo numbers of the fleet_step kernels entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import montecarlo
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.fleet import FaultPlan, FleetEngine, HintOutage
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+
+    # (a) the kernel with each plane against its plain version
+    def held(where, args, kw):
+        before = fs.fleet_step.launches
+        out = fs.fleet_step(*args, **kw)
+        torch.cuda.synchronize()
+        check(fs.fleet_step.launches == before + 1,
+              f"{where}: {fs.fleet_step.launches - before} launches")
+        ref = fs.fleet_step_reference(*args, **kw)
+        err = compare(out, ref, where)
+        if ref[6] is not None:
+            for name, a, b in zip(("held rho", "stale", "degraded"), out[6],
+                                  ref[6]):
+                check(torch.equal(a, b), f"{where}: {name} differs")
+        return err, out
+
+    cases = []
+    for nt in (1, 8, 47):
+        for mode in ("v24", "reactive", "reactive_poll", "off"):
+            for het in (nt, 1):
+                cases.append((f"het[{het}] {mode} {nt} tiles", dict(
+                    mode=mode, n_tiles=nt, n=300, t=96, het=het)))
+    for nt in (1, 8, 47):
+        for coupled in (False, True):
+            for fb, mx, het in ((True, False, 0), (False, True, 0),
+                                (True, True, nt)):
+                cases.append((
+                    f"{'fb0 ' if fb else ''}{'mode0 ' if mx else ''}"
+                    f"{'het ' if het else ''}{nt} tiles "
+                    f"{'coupled' if coupled else 'uncoupled'}",
+                    dict(mode="v24", n_tiles=nt, n=200, t=96, het=het,
+                         fallback=fb, mixed=mx, coupled=coupled, bad=fb)))
+    for nt in (129, 200):
+        for mode in ("v24", "reactive", "reactive_poll", "off"):
+            cases.append((f"wide {mode} {nt} tiles",
+                          dict(mode=mode, n_tiles=nt, n=40, t=96)))
+    cases.append(("wide v24 512 tiles", dict(mode="v24", n_tiles=512, n=64,
+                                             t=48)))
+    cases.append(("wide fb0 mode0 het 200 tiles", dict(
+        mode="v24", n_tiles=200, n=40, t=96, het=1, fallback=True,
+        mixed=True, bad=True)))
+    errs, layouts = [], {}
+    for i, (where, kw) in enumerate(cases):
+        args, kwargs = plane_window(dev, seed=i, **kw)
+        lay = fs.layout(kw["n_tiles"], args[7])
+        layouts[lay] = layouts.get(lay, 0) + 1
+        err, _ = held(f"phase I {where}", args, kwargs)
+        errs.append(err)
+    print(f"[phaseI] (a) {len(cases)} windows with per-package planes and "
+          f"> 128 tiles held against the plain version ({layouts}): "
+          f"max_abs_err {max(errs):.3e}, events, latches, counters and held "
+          f"rho exact, one launch each")
+
+    # (b) the paper's population end to end, on fused, then the same draws
+    # on broadcast and through the per-trial oracle
+    torch.cuda.synchronize()
+    fs.fleet_step.launches = 0
+    res = serve.main(MC_ARGV)
+    torch.cuda.synchronize()
+    mc_launches = fs.fleet_step.launches
+    want = 2 * -(-MC_STEPS // MC_CHUNK)
+    check(mc_launches == want,
+          f"serve --montecarlo launched fleet_step {mc_launches} times, "
+          f"want {want}")
+    r = res["result"]
+    n_trials = int(MC_ARGV[1])
+    bcast = montecarlo.run(seed=0, n_trials=n_trials, n_steps=MC_STEPS,
+                           burn_in=MC_BURN_IN, backend="broadcast",
+                           device=dev)
+    t0 = time.perf_counter()
+    oracle = montecarlo.run_reference(seed=0, n_trials=n_trials,
+                                      n_steps=MC_STEPS, burn_in=MC_BURN_IN,
+                                      device=dev)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    mc_err = 0.0
+    for name, other in (("broadcast", bcast), ("run_reference", oracle)):
+        for f in r._fields:
+            a, b = getattr(r, f), getattr(other, f)
+            check(a.shape == (n_trials,) and bool(torch.isfinite(a).all()),
+                  f"montecarlo {f}: shape {tuple(a.shape)} or not finite")
+            d = float((a - b).abs().max())
+            check(torch.allclose(a, b, **TOL),
+                  f"montecarlo fused vs {name}: {f} differs by {d:.3e}")
+            mc_err = max(mc_err, d)
+    s = res["montecarlo"]
+    check(s["baseline_mean_c"] > s["v24_mean_c"]
+          and s["sigma_tighter_x"] > 1.0,
+          f"the §10 population shows no tightening: {s}")
+    print(f"[phaseI] (b) serve --montecarlo {n_trials} on fused: "
+          f"{mc_launches} fleet_step launches, {res['trials_per_s']:.4g} "
+          f"trials/s (host clock); per trial within 1e-5 of broadcast and "
+          f"run_reference on the same draws (max |d| {mc_err:.3e}; "
+          f"run_reference {oracle_s:.2f} s); " + json.dumps(s))
+
+    # (c) a population at fleet scale, and one survey block's kernel time
+    # beside its bound at both sizes
+    torch.cuda.synchronize()
+    fs.fleet_step.launches = 0
+    t0 = time.perf_counter()
+    draws = montecarlo.sample_trials(3, MC_FLEET_TRIALS, MC_STEPS,
+                                     device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    big = montecarlo.run(burn_in=MC_BURN_IN, backend="fused", draws=draws,
+                         device=dev)
+    big_s = big.stats()
+    t2 = time.perf_counter()
+    big_wall = t2 - t0
+    check(fs.fleet_step.launches == want,
+          f"{MC_FLEET_TRIALS} trials: {fs.fleet_step.launches} launches")
+    check(all(np.isfinite(v) for v in big_s.values()),
+          f"{MC_FLEET_TRIALS} trials: non-finite statistics {big_s}")
+    blocks = {}
+    for trials in (n_trials, MC_FLEET_TRIALS):
+        for mode in ("reactive_poll", "v24"):
+            args, kwargs = mc_block(dev, trials, mode)
+            fs.fleet_step(*args, **kwargs)
+            ms = event_ms(lambda: fs.fleet_step(*args, **kwargs), 5)
+            b_ms, b_by = bound(*fs.fleet_step_cost(
+                args[0], args[6], args[7], het=kwargs["het"]))
+            blocks[f"{trials}/{mode}"] = (ms, b_ms, b_by)
+            print(f"[phaseI] (c) survey block {list(args[0].shape)} "
+                  f"{mode}: kernel {ms:.4f} ms (median of 5, CUDA events), "
+                  f"bound {b_ms:.4f} ms by {b_by}")
+    blocks_ms = sum(-(-MC_STEPS // MC_CHUNK) * blocks[
+        f"{MC_FLEET_TRIALS}/{m}"][0] for m in ("reactive_poll", "v24"))
+    print(f"[phaseI] (c) {MC_FLEET_TRIALS} trials x {MC_STEPS} steps on "
+          f"fused: {big_wall:.3f} s = {MC_FLEET_TRIALS / big_wall:.4g} "
+          f"trials/s (host clock, after torch.cuda.synchronize): draws and "
+          f"traces made on the card {(t1 - t0) * 1e3:.1f} ms, the two "
+          f"surveys and the statistics {(t2 - t1) * 1e3:.1f} ms, of which "
+          f"the {want} kernel launches ~{blocks_ms:.1f} ms (first-block "
+          f"times); {want} launches; " + json.dumps(big_s))
+
+    # (d) two more paths: a node-bank stream and a degraded-fallback stream
+    node = ["--stream", "--node", "n3", "--fleet", "4096", "--waves", "4",
+            "--gen", "256"]
+    fs.fleet_step.launches = 0
+    rf = serve.main(node + ["--fleet-backend", "fused"])
+    check(fs.fleet_step.launches == 4,
+          f"serve --stream --node n3: {fs.fleet_step.launches} launches")
+    rb = serve.main(node + ["--fleet-backend", "broadcast"])
+    for a, b in zip(rf["stream"], rb["stream"]):
+        for k in a:
+            tol = 1e-3 if k in ("freq_min", "at_risk_frac") else 1e-5
+            check(abs(a[k] - b[k]) <= tol + tol * abs(b[k]),
+                  f"--node n3 fused vs broadcast: {k} {a[k]} vs {b[k]}")
+    n, nt, steps, flush = FB_STREAM
+    cfg = SchedulerConfig(n_tiles=nt, mode="v24", degraded_fallback=True,
+                          stale_limit_steps=4, recover_steps=8)
+    plan = FaultPlan.generate(seed=5, n_packages=n, n_steps=steps,
+                              faults=64, kinds=("dropout", "corrupt"))
+    plan = FaultPlan(seed=plan.seed, sensor_faults=plan.sensor_faults,
+                     hint_outages=(HintOutage(FB_OUTAGE, 24),))
+    clean = fleet_trace(nt, n, steps)
+    trace = plan.apply(clean, 0)
+    got = {}
+    for backend in ("fused", "broadcast"):
+        eng = FleetEngine(cfg, backend=backend)
+        fs.fleet_step.launches = 0
+        st, tel = eng.run_chunked(eng.init(n), trace, flush)
+        torch.cuda.synchronize()
+        got[backend] = (st, tel, fs.fleet_step.launches)
+    (sf, tf, lf), (sb, tb, _) = got["fused"], got["broadcast"]
+    check(lf == steps // flush, f"fallback stream: {lf} launches")
+    for f in ("events", "stale", "degraded"):
+        check(torch.equal(getattr(sf, f), getattr(sb, f)),
+              f"fallback stream: state.{f} differs fused vs broadcast")
+    for f in ("thermal", "freq", "rho_last"):
+        check(torch.allclose(getattr(sf, f), getattr(sb, f), **TOL),
+              f"fallback stream: state.{f} differs fused vs broadcast")
+    dc_f, dc_b = tf.degraded_count.tolist(), tb.degraded_count.tolist()
+    check(dc_f == dc_b and tf.events_total.tolist()
+          == tb.events_total.tolist(),
+          f"fallback stream: degraded counts {dc_f} vs {dc_b}")
+    check(dc_f[FB_OUTAGE // flush] == n,
+          f"the outage degrades all lanes: {dc_f}")
+    # the fallback fleet's window with the outage, in the wide layout, and
+    # the same window of the clean trace in the wide layout and, without
+    # the fallback plane, in the packed layout (Phase B's kernel)
+    peak = FB_OUTAGE // flush
+    window_ms = {}
+    for name, c, tr in (
+            ("wide, faulted", cfg, trace), ("wide, clean", cfg, clean),
+            ("packed, clean", SchedulerConfig(n_tiles=nt, mode="v24"),
+             clean)):
+        eng = FleetEngine(c, backend="fused")
+        be = eng.backend_impl
+        args, kwargs = warm_window(be, eng.init(n), tr, flush, peak)[2:]
+        check(fs.layout(nt, args[7]) == name.split(",")[0],
+              f"fallback window {name}: layout {fs.layout(nt, args[7])}")
+        fs.fleet_step(*args, **kwargs)
+        window_ms[name] = event_ms(lambda: fs.fleet_step(*args, **kwargs),
+                                   5)
+    print(f"[phaseI] (d) serve --stream --node n3 fused == broadcast "
+          f"(4 launches); fallback stream {n} x {nt} coupled v24 tiles "
+          f"(wide layout), {plan.describe()}: degraded per flush {dc_f}, "
+          f"events {tf.events_total.tolist()}, fused == broadcast; "
+          f"fleet_step [{flush}, {nt}, {n}] on flush {peak + 1} (median of "
+          f"5, CUDA events): " + json.dumps(window_ms)
+          + f"; phase I {time.perf_counter() - t_phase:.1f} s")
+    return {"fallback_window_ms": window_ms,
+            "mc_launches": mc_launches, "mc_max_abs_err": mc_err,
+            "mc_trials_per_s": res["trials_per_s"],
+            "mc_fleet_trials_per_s": MC_FLEET_TRIALS / big_wall,
+            "mc_block_ms": {k: v[0] for k, v in blocks.items()},
+            "mc_block_bound_ms": {k: v[1] for k, v in blocks.items()}}
 
 
 def timed(fn) -> tuple[object, float]:

@@ -13,9 +13,11 @@ bit for bit; the state crosses over leaf by leaf through numpy:
   * `telemetry_from_numpy` builds a port `FleetTelemetry` from a reference
     record or flush dict, for comparisons.
 
-The shared clocks (``step``, filtration ``ptr``) stay on the host.  Leaves
-of the reference's unported planes (per-package draws, the degraded
-fallback, operator modes) must be None.
+The shared clocks (``step``, filtration ``ptr``) stay on the host.  The
+per-package planes cross over too: the degraded fallback's ``rho_last`` /
+``stale`` / ``degraded``, the operator's ``ctrl_mode`` and the
+heterogeneous draws ``pkg`` (`package_params_from_numpy`, also usable on
+its own to feed the reference's `PackageParams` into a port fleet).
 
 The plant ladder's constants cross over the same way:
 
@@ -41,27 +43,34 @@ from repro_torch import resolve_device
 from repro_torch.core.fingerprint import FINGERPRINT
 from repro_torch.core.pdu_gate import Filtration, FiltrationStats
 from repro_torch.core.plant import GridPlant
-from repro_torch.core.scheduler import SchedulerState
+from repro_torch.core.scheduler import PackageParams, SchedulerState
 from repro_torch.core.thermal import PoleParams
 from repro_torch.models import transformer
 from repro_torch.fleet.engine import FleetTelemetry
 
-_UNPORTED = ("pkg", "rho_last", "stale", "degraded", "ctrl_mode")
+_PLANES = ("throttled", "rho_last", "stale", "degraded", "ctrl_mode")
 
 
 def _clock(x) -> torch.Tensor:
     return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
 
 
-def state_from_numpy(ref_state, device=None) -> SchedulerState:
-    """Port `SchedulerState` from the reference's state leaves."""
+def package_params_from_numpy(ref_pkg, device=None) -> PackageParams:
+    """Port `PackageParams` from the reference's per-package draws (any
+    object with its field names and numpy-convertible leaves): the same f32
+    decay / gain / η / ΣG and int32 polling periods, nothing re-derived."""
     dev = resolve_device(device)
-    for f in _UNPORTED:
-        if getattr(ref_state, f, None) is not None:
-            raise NotImplementedError(
-                f"state leaf {f!r} belongs to a plane not ported yet "
-                f"(ROADMAP queue 1 step 5)")
-    leaf = lambda x: torch.tensor(np.asarray(x), device=dev)
+    return PackageParams(**{
+        f: torch.tensor(np.asarray(getattr(ref_pkg, f)), device=dev)
+        for f in PackageParams._fields})
+
+
+def state_from_numpy(ref_state, device=None) -> SchedulerState:
+    """Port `SchedulerState` from the reference's state leaves, the
+    per-package planes included."""
+    dev = resolve_device(device)
+    leaf = lambda x: None if x is None else torch.tensor(np.asarray(x),
+                                                         device=dev)
     ft = ref_state.filtration
     if hasattr(ft, "wsum"):
         filtration = FiltrationStats(buf=leaf(ft.buf), ptr=_clock(ft.ptr),
@@ -69,12 +78,13 @@ def state_from_numpy(ref_state, device=None) -> SchedulerState:
                                      rsum=leaf(ft.rsum))
     else:
         filtration = Filtration(buf=leaf(ft.buf), ptr=_clock(ft.ptr))
-    throttled = ref_state.throttled
+    pkg = getattr(ref_state, "pkg", None)
     return SchedulerState(
         thermal=leaf(ref_state.thermal), filtration=filtration,
         freq=leaf(ref_state.freq), step=_clock(ref_state.step),
         events=leaf(ref_state.events),
-        throttled=None if throttled is None else leaf(throttled))
+        pkg=None if pkg is None else package_params_from_numpy(pkg, dev),
+        **{f: leaf(getattr(ref_state, f, None)) for f in _PLANES})
 
 
 def state_to_numpy(state: SchedulerState) -> SchedulerState:
@@ -83,10 +93,13 @@ def state_to_numpy(state: SchedulerState) -> SchedulerState:
     ft = state.filtration
     conv = {f: leaf(getattr(ft, f)) for f in ft._fields}
     conv["ptr"] = np.asarray(int(ft.ptr), np.int32)
+    pkg = state.pkg
     return state._replace(
         thermal=leaf(state.thermal), filtration=type(ft)(**conv),
         freq=leaf(state.freq), step=np.asarray(int(state.step), np.int32),
-        events=leaf(state.events), throttled=leaf(state.throttled))
+        events=leaf(state.events),
+        pkg=None if pkg is None else PackageParams(*map(leaf, pkg)),
+        **{f: leaf(getattr(state, f)) for f in _PLANES})
 
 
 def telemetry_from_numpy(ref_telem, device=None) -> FleetTelemetry:

@@ -11,7 +11,7 @@ thermal plant (`core.thermal`); power model P(ρ, f) = P(ρ)·f³.
   * peak temperature ≤ 85 °C under V24, no frequency-reduction events.
 
 Rounding follows the reference's compiled loop: the plant update
-a·s + (1 − a)·G·P is one FMA over the rounded drive term (`_plant_step`),
+a·s + (1 − a)·G·P is one FMA over the rounded drive term (`thermal.step_fused`),
 the budget t_allow − (1 − η)·ΔT one FMA times the f32 reciprocal of η·ΣG,
 and the control law's fractional power is correctly rounded (`pow_f32`).
 """
@@ -67,17 +67,6 @@ def _couple(gamma, p):
     return p if gamma is None else apply_coupling(gamma, p)
 
 
-def _plant_step(poles: thermal.PoleParams, state: torch.Tensor,
-                p_eff: torch.Tensor) -> torch.Tensor:
-    """`thermal.step` with a·s + drive fused into one FMA, as the reference's
-    compiled DVFS loop computes it."""
-    decay = torch.as_tensor(poles.decay, dtype=torch.float32,
-                            device=state.device)
-    gain = torch.as_tensor(poles.gain, dtype=torch.float32,
-                           device=state.device)
-    return fma_f32(decay, state, (1.0 - decay) * gain * p_eff[..., None])
-
-
 def simulate_reactive(rho_trace, cfg: DVFSConfig | None = None,
                       fp: Fingerprint = FINGERPRINT, gamma=None,
                       poles: thermal.PoleParams | None = None,
@@ -100,7 +89,7 @@ def simulate_reactive(rho_trace, cfg: DVFSConfig | None = None,
     freqs, temps = [], []
     for k in range(rho.shape[0]):
         p = power_from_rho(rho[k]) * f ** cfg.power_exponent
-        st = _plant_step(poles, st, _couple(gamma, p))
+        st = thermal.step_fused(poles, st, _couple(gamma, p))
         t = fp.t_ambient_c + thermal.delta_t(st)
         polled = k % poll_ticks == 0
         trig = (t >= fp.t_crit_c) & polled
@@ -162,7 +151,7 @@ def simulate_v24(rho_trace, cfg: DVFSConfig | None = None,
                 / (gd * p_hat).clamp(min=1e-3), inv_exp), 0.05, 1.0)
             f = torch.minimum(f, f_cpl)
         p = p_hat * f ** cfg.power_exponent
-        st = _plant_step(poles, st, _couple(gamma, p))
+        st = thermal.step_fused(poles, st, _couple(gamma, p))
         t = fp.t_ambient_c + thermal.delta_t(st)
         events = events + (t >= fp.t_crit_c).any().to(torch.int32)
         f_prev = f

@@ -118,11 +118,11 @@ class PoleBankPlant(ThermalPlant):
                                   device=self.device)
 
     def step(self, state, power_w, poles=None):
-        if poles is not None:
-            raise NotImplementedError(
-                "per-package pole banks (heterogeneous fleets) are not "
-                "ported yet: ROADMAP queue 1 step 5")
-        return thermal.step(self._poles_dev, state, power_w)
+        """One tick on the plant's bank, or on ``poles`` — per-package
+        draws [*batch, n_tiles | 1, n_poles] of a heterogeneous fleet —
+        with the reference's rounding (`thermal.step_fused`)."""
+        return thermal.step_fused(self._poles_dev if poles is None
+                                  else poles, state, power_w)
 
     def delta_t(self, state):
         return thermal.delta_t(state)

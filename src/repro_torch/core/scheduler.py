@@ -1,8 +1,8 @@
 """ThermalScheduler — the paper's firmware layer, one closed-loop step at a time.
 
-Port of `repro.core.scheduler` (homogeneous fleets).  One `update` call is
-one serving step: density → filtration → PDU-gate hint → control law →
-pole-bank plant → event count.
+Port of `repro.core.scheduler`.  One `update` call is one serving step:
+density → filtration → PDU-gate hint → control law → pole-bank plant →
+event count.
 
 State contract:
 
@@ -15,11 +15,18 @@ State contract:
     (the wraparound refresh, the reactive_poll sensor phase) is a host
     decision.
 
-Modes ported: ``v24``, ``reactive``, ``reactive_poll`` and ``off``, with
-both ``filtration_impl`` values, on every plant rung (``pole``, ``grid``,
-``rom``; the plant supplies the state, its step and η/ΣG).
-``heterogeneous``, ``degraded_fallback`` and ``mixed_mode`` raise until they
-are ported (ROADMAP queue 1 step 5).
+  * `PackageParams` rows (per-package process variation, §10) batch the
+    same way and ride in the state; their η is derived eagerly with the
+    plant's own f32 ops (`plant._eta_f32`), and the budget multiplies by
+    the explicit reciprocal of η·ΣG, so a heterogeneous fleet whose draws
+    all equal the fingerprint bit-matches the homogeneous one.
+
+Modes: ``v24``, ``reactive``, ``reactive_poll`` and ``off``, with both
+``filtration_impl`` values, on every plant rung (``pole``, ``grid``,
+``rom``; the plant supplies the state, its step and η/ΣG).  Per-package
+planes: ``heterogeneous`` (pole plant only), ``degraded_fallback`` (the
+staleness counter and hysteresis latch on non-finite density) and
+``mixed_mode`` (the operator's per-lane reactive pin), the last two on v24.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import fma_f32, pow_f32, resolve_device
-from repro_torch.core import pdu_gate
+from repro_torch.core import pdu_gate, thermal
 from repro_torch.core import plant as plant_mod
 from repro_torch.core.coupling import (apply_coupling, coupling_matrix,
                                        row_normalise)
@@ -57,14 +64,26 @@ class SchedulerConfig:
     t_safe_margin_c: float = 1.0
     power_exponent: float = 3.0
     straggler_threshold: float = 0.9   # f below this ⇒ tile flagged at-risk
-    heterogeneous: bool = False    # per-package physics — not ported yet
+    # per-package process variation: the state carries `PackageParams`
+    # (pole decay/gain, preposition fraction, polling period) and every
+    # batch lane runs ITS OWN physics — the §10 Monte-Carlo object
+    heterogeneous: bool = False
     # ``reactive_poll`` baseline knobs
     throttle_level: float = 0.55   # emergency floor while throttled
     resume_below_c: float = 66.0   # hysteresis: throttled until T ≤ this
     recover_ms: float = 100.0      # ramp-back time constant
     poll_interval_ms: float = 25.0 # homogeneous polling period
-    degraded_fallback: bool = False  # in-graph stale-hint fallback — not ported
-    mixed_mode: bool = False       # operator per-lane mode pins — not ported
+    # graceful degradation (v24 only): a package whose density words go
+    # non-finite (a late, dropped or corrupted hint chunk) holds its last
+    # finite ρ and, after ``stale_limit_steps`` stale steps, falls back to
+    # the reactive_poll floor; it recovers after ``recover_steps`` fresh ones
+    degraded_fallback: bool = False
+    stale_limit_steps: int = 5     # consecutive stale steps before fallback
+    recover_steps: int = 10        # consecutive fresh steps before recovery
+    # operator-settable per-lane controller mode (v24 only): the state's
+    # ``ctrl_mode`` [*batch] bool plane pins a lane to reactive_poll; it ORs
+    # with the staleness latch when both are on
+    mixed_mode: bool = False
     # thermal-plant fidelity rung (`repro_torch.core.plant`): "pole" is the
     # paper's bank, "grid" the spatial RC-grid ground truth, "rom" the
     # reduced-order bank fit from it
@@ -81,6 +100,22 @@ class SchedulerConfig:
         return self.lookahead_steps * self.step_ms
 
 
+class PackageParams(NamedTuple):
+    """Per-package process/deployment draws riding IN the state (§10.1).
+
+    Leaves broadcast against the state's [*batch, n_tiles, ...] layout: the
+    tile axis is 1 (one draw per package) or n_tiles (one draw per tile —
+    how the Monte-Carlo harness packs trials onto tile lanes).  ``eta`` and
+    ``gain_sum`` are derived eagerly (`ThermalScheduler.package_params`).
+    """
+
+    decay: torch.Tensor      # [*batch, n_tiles | 1, n_poles]  a = exp(−dt/τ)
+    gain: torch.Tensor       # [*batch, n_tiles | 1, n_poles]  G [°C/W]
+    eta: torch.Tensor        # [*batch, n_tiles | 1]  1 − a_slow^(Δt_la/dt)
+    gain_sum: torch.Tensor   # [*batch, n_tiles | 1]  Σ G (= Rth)
+    poll_ticks: torch.Tensor # [*batch, n_tiles | 1] int32 — OEM poll period
+
+
 class SchedulerState(NamedTuple):
     """Leaves carry leading batch dims ([*batch, ...]); ``step`` and the
     filtration ``ptr`` are shared host clocks."""
@@ -90,13 +125,18 @@ class SchedulerState(NamedTuple):
     freq: torch.Tensor              # [..., n_tiles]
     step: torch.Tensor              # host 0-dim int32
     events: torch.Tensor            # [...] int32 — T_crit crossings (want 0)
-    pkg: None = None                # per-package draws (not ported)
-    # reactive_poll hysteresis latch [..., n_tiles] bool (None otherwise)
+    # per-package physics (heterogeneous) — None: every package on the
+    # scheduler's fingerprint poles
+    pkg: "PackageParams | None" = None
+    # hysteresis latch [..., n_tiles] bool — reactive_poll, the degraded
+    # fallback and mixed mode (None otherwise)
     throttled: "torch.Tensor | None" = None
-    rho_last: None = None           # degraded-fallback plane (not ported)
-    stale: None = None
-    degraded: None = None
-    ctrl_mode: None = None          # operator mode plane (not ported)
+    # degraded-fallback plane (per PACKAGE: one hint stream per package)
+    rho_last: "torch.Tensor | None" = None   # [..., n_tiles] last finite ρ
+    stale: "torch.Tensor | None" = None      # [...] int32 staleness counter
+    degraded: "torch.Tensor | None" = None   # [...] bool — on reactive floor
+    # operator controller-mode plane (mixed_mode): True pins reactive_poll
+    ctrl_mode: "torch.Tensor | None" = None  # [...] bool
 
 
 class SchedulerOutput(NamedTuple):
@@ -106,11 +146,6 @@ class SchedulerOutput(NamedTuple):
     eta: torch.Tensor               # scalar preposition fraction
     at_risk: torch.Tensor           # [..., n_tiles] bool straggler-risk flags
     balance: torch.Tensor           # [..., n_tiles] work-rebalance weights (sum=1)
-
-
-def _not_ported(what: str, step: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP queue 1 step {step}")
 
 
 class ThermalScheduler:
@@ -125,9 +160,29 @@ class ThermalScheduler:
         if cfg.mode not in ("v24", "reactive", "reactive_poll", "off"):
             raise ValueError(f"unknown mode {cfg.mode!r} "
                              f"(v24|reactive|reactive_poll|off)")
-        for flag in ("heterogeneous", "degraded_fallback", "mixed_mode"):
-            if getattr(cfg, flag):
-                raise _not_ported(f"SchedulerConfig({flag}=True)", 5)
+        if cfg.degraded_fallback and cfg.mode != "v24":
+            raise ValueError(
+                f"degraded_fallback=True requires mode='v24' (the fallback "
+                f"IS reactive_poll — mode {cfg.mode!r} has no predictive "
+                f"layer to degrade from)")
+        if cfg.degraded_fallback and (cfg.stale_limit_steps < 1
+                                      or cfg.recover_steps < 1):
+            raise ValueError("stale_limit_steps and recover_steps must be "
+                             ">= 1")
+        if cfg.mixed_mode and cfg.mode != "v24":
+            raise ValueError(
+                f"mixed_mode=True requires mode='v24' (per-lane pins shift "
+                f"lanes v24 <-> reactive_poll — mode {cfg.mode!r} has no "
+                f"predictive layer to pin away from)")
+        if cfg.plant not in plant_mod.available_plants():
+            raise ValueError(
+                f"unknown plant {cfg.plant!r} (available: "
+                f"{', '.join(plant_mod.available_plants())})")
+        if cfg.heterogeneous and cfg.plant != "pole":
+            raise ValueError(
+                "heterogeneous=True requires plant='pole' — per-package "
+                "PackageParams draws override the fingerprint pole bank; "
+                f"plant {cfg.plant!r} has no per-package override")
         self.cfg = cfg
         self.fp = fp
         self.device = resolve_device(device)
@@ -155,34 +210,116 @@ class ThermalScheduler:
         self.poll_ticks = max(int(cfg.poll_interval_ms / cfg.step_ms), 1)
 
     # ------------------------------------------------------------------ api
-    def init(self, batch_shape: tuple[int, ...] = (), pkg=None,
+    def package_params(self, poles: thermal.PoleParams | None = None,
+                       poll_ticks=None,
+                       batch_shape: tuple[int, ...] = ()) -> PackageParams:
+        """Per-package draws for a heterogeneous fleet.
+
+        ``poles``: a `thermal.PoleParams` bank with decay/gain shaped
+        [*batch, n_tiles | 1, n_poles] (an [*batch, n_poles] bank gains a
+        tile axis).  ``None`` replicates the scheduler's fingerprint poles
+        — identical draws that bit-match the homogeneous path.
+        ``poll_ticks``: [*batch, n_tiles | 1]-broadcastable integer polling
+        periods (default: the config's).  η and ΣG are derived here,
+        eagerly, in f32, on the host: the draws are experiment inputs.
+        """
+        c, dev = self.cfg, self.device
+        if self.poles is None:
+            raise ValueError(
+                f"package_params requires a pole-family plant "
+                f"(plant={c.plant!r} carries no pole bank)")
+        if poles is None:
+            shape = lambda x: batch_shape + (1,) + tuple(np.shape(x))
+            poles = thermal.PoleParams(
+                decay=np.broadcast_to(self.poles.decay,
+                                      shape(self.poles.decay)),
+                gain=np.broadcast_to(self.poles.gain, shape(self.poles.gain)))
+        host = lambda x: (x.detach().cpu().numpy() if torch.is_tensor(x)
+                          else np.asarray(x)).astype(np.float32)
+        decay, gain = host(poles.decay), host(poles.gain)
+        if decay.ndim == len(batch_shape) + 1:     # [*batch, n_poles]
+            decay, gain = decay[..., None, :], gain[..., None, :]
+        n_poles = np.shape(self.poles.decay)[0]
+        if decay.shape[-1] != n_poles or gain.shape != decay.shape:
+            raise ValueError(
+                f"per-package poles must carry decay/gain "
+                f"[*batch, n_tiles|1, {n_poles}], got {decay.shape} / "
+                f"{gain.shape}")
+        if poll_ticks is None:
+            poll_ticks = np.full(decay.shape[:-1], self.poll_ticks, np.int32)
+        poll = (poll_ticks.detach().cpu().numpy() if torch.is_tensor(poll_ticks)
+                else np.asarray(poll_ticks)).astype(np.int32)
+        eta = plant_mod._eta_f32(decay[..., -1], c.lookahead_ms / c.step_ms)
+        put = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+        return PackageParams(decay=put(decay), gain=put(gain), eta=put(eta),
+                             gain_sum=put(gain).sum(-1), poll_ticks=put(poll))
+
+    def init(self, batch_shape: tuple[int, ...] = (),
+             pkg: PackageParams | None = None,
              filtration_fill=None) -> SchedulerState:
         """Fresh state; ``batch_shape`` prepends fleet/package dimensions.
 
-        ``filtration_fill`` overrides the ring's seed value (scalar or
-        [*batch, n_tiles]-broadcastable).
+        With ``heterogeneous`` the state carries ``pkg`` (default:
+        fingerprint replicas, see `package_params`).  ``filtration_fill``
+        overrides the ring's seed value (scalar or [*batch, n_tiles]-
+        broadcastable; the Monte-Carlo harness seeds each trial with its
+        trace's opening density), and seeds the fallback's held ρ.
         """
-        if pkg is not None:
-            raise _not_ported("per-package PackageParams", 5)
         c, dev = self.cfg, self.device
+        if pkg is not None and not c.heterogeneous:
+            raise ValueError("per-package draws require "
+                             "SchedulerConfig(heterogeneous=True)")
+        if c.heterogeneous and pkg is None:
+            pkg = self.package_params(batch_shape=batch_shape)
+        if pkg is not None and (
+                pkg.decay.ndim != len(batch_shape) + 2
+                or tuple(pkg.decay.shape[:len(batch_shape)]) != batch_shape
+                or pkg.decay.shape[-2] not in (1, c.n_tiles)):
+            raise ValueError(
+                f"PackageParams.decay must be "
+                f"[*{batch_shape}, {c.n_tiles}|1, n_poles], got "
+                f"{tuple(pkg.decay.shape)} (build it with "
+                f"package_params(..., batch_shape=...))")
         fill = self.fp.rho_min if filtration_fill is None else filtration_fill
         init_ft = (pdu_gate.init_filtration_stats
                    if c.filtration_impl == "incremental"
                    else pdu_gate.init_filtration)
+        fb = c.degraded_fallback
+        tiles = batch_shape + (c.n_tiles,)
+        zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         return SchedulerState(
             thermal=self.plant.init_state(batch_shape),
             filtration=init_ft(c.filtration_window, c.n_tiles, fill=fill,
                                batch_shape=batch_shape, device=dev),
-            freq=torch.ones(batch_shape + (c.n_tiles,), device=dev),
+            freq=torch.ones(tiles, device=dev),
             step=torch.tensor(0, dtype=torch.int32),
-            events=torch.zeros(batch_shape, dtype=torch.int32, device=dev),
-            throttled=(torch.zeros(batch_shape + (c.n_tiles,),
-                                   dtype=torch.bool, device=dev)
-                       if c.mode == "reactive_poll" else None),
+            events=zeros(batch_shape, torch.int32),
+            pkg=pkg,
+            throttled=(zeros(tiles, torch.bool)
+                       if c.mode == "reactive_poll" or fb or c.mixed_mode
+                       else None),
+            # the held ρ starts at the filtration seed: a lane faulted from
+            # its first chunk holds the density its ring was primed with
+            rho_last=(torch.as_tensor(fill, dtype=torch.float32, device=dev
+                                      ).expand(tiles).clone() if fb else None),
+            stale=zeros(batch_shape, torch.int32) if fb else None,
+            degraded=zeros(batch_shape, torch.bool) if fb else None,
+            ctrl_mode=zeros(batch_shape, torch.bool) if c.mixed_mode else None,
         )
 
     def _couple(self, p: torch.Tensor) -> torch.Tensor:
         return p if self.gamma is None else apply_coupling(self.gamma, p)
+
+    def _physics(self, st: SchedulerState):
+        """(poles, −(1 − η), 1/(η·ΣG), poll) — the plant's constants
+        (``poles=None``: the plant steps its own bank), or the state's
+        per-package draws, with the same f32 ops on both."""
+        if st.pkg is None:
+            return (None, self.neg_one_m_eta, self.inv_eta_gain,
+                    self.poll_ticks)
+        pk = st.pkg
+        return (thermal.PoleParams(decay=pk.decay, gain=pk.gain),
+                -(1.0 - pk.eta), 1.0 / (pk.eta * pk.gain_sum), pk.poll_ticks)
 
     def update(self, st: SchedulerState,
                rho) -> tuple[SchedulerState, SchedulerOutput]:
@@ -192,13 +329,36 @@ class ThermalScheduler:
         rho = torch.as_tensor(rho, dtype=torch.float32,
                               device=self.device).expand(st.freq.shape)
 
+        degraded = stale = None
+        if c.degraded_fallback:
+            # staleness plane: non-finite density words mark a package whose
+            # hint stream is late, dropped or corrupted.  Hold the last
+            # finite value (the filtration stays warm) and run the
+            # per-package counter with hysteresis; fault-free lanes take
+            # the else-branches, so a clean run bit-matches no fallback
+            finite = torch.isfinite(rho)
+            valid = finite.all(dim=-1)
+            rho = torch.where(finite, rho, st.rho_last)
+            stale = torch.where(
+                valid, (st.stale - 1).clamp(min=0),
+                (st.stale + 1).clamp(max=c.stale_limit_steps
+                                     + c.recover_steps)).to(torch.int32)
+            degraded = ((st.degraded & (stale > 0))
+                        | (stale >= c.stale_limit_steps))
+        # the effective per-lane reactive mask: staleness latch OR pin
+        reactive = degraded
+        if st.ctrl_mode is not None:
+            reactive = (st.ctrl_mode if reactive is None
+                        else reactive | st.ctrl_mode)
+
         ft = pdu_gate.observe(st.filtration, rho)
         # instantaneous tile power, computed ONCE: it floors the hint below
         # and (scaled by the chosen frequency) drives the plant at the end
         p_now = power_from_rho(rho)
+        poles, neg_one_m_eta, inv_eta_gain, poll = self._physics(st)
 
         if c.mode == "reactive_poll":
-            return self._update_reactive_poll(st, ft, p_now)
+            return self._update_reactive_poll(st, ft, p_now, poles, poll)
 
         dt_now = self.plant.delta_t(st.thermal)
         t_allow = fp.t_crit_c - c.t_safe_margin_c - fp.t_ambient_c
@@ -208,8 +368,7 @@ class ThermalScheduler:
             # instantaneous load floors the hint: prediction buys lead time,
             # never permission to exceed budget on a mispredicted onset
             hint = torch.maximum(hint, self._couple(p_now))
-            budget = fma_f32(self.neg_one_m_eta, dt_now,
-                             t_allow) * self.inv_eta_gain
+            budget = fma_f32(neg_one_m_eta, dt_now, t_allow) * inv_eta_gain
             f_uni = torch.clamp(
                 pow_f32(budget / hint.clamp(min=1e-3), self.inv_exp),
                 0.05, 1.0)
@@ -239,12 +398,49 @@ class ThermalScheduler:
             # the reported hint falls back to the instantaneous load floor
             hint = self._couple(p_now)
 
-        p_eff = self._couple(p_now * freq ** c.power_exponent)
-        thermal_next = self.plant.step(st.thermal, p_eff)
-        temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
-        events = st.events + (temp > fp.t_crit_c).any(dim=-1).to(torch.int32)
+        throttled = st.throttled
+        if reactive is None:
+            p_eff = self._couple(p_now * freq ** c.power_exponent)
+            thermal_next = self.plant.step(st.thermal, p_eff, poles=poles)
+            temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
+            events = st.events + (temp > fp.t_crit_c).any(dim=-1).to(
+                torch.int32)
+        else:
+            # merged plant: reactive lanes (degraded or pinned) run
+            # reactive_poll semantics — the plant at LAST step's frequency,
+            # the sensor polling the post-step junction, the latch carrying
+            # the hysteresis — v24 lanes take the predictive law; the plant
+            # steps ONCE at the per-lane blended frequency
+            deg_t = reactive[..., None]
+            f_used = torch.where(deg_t, st.freq, freq)
+            p_eff = self._couple(p_now * f_used ** c.power_exponent)
+            thermal_next = self.plant.step(st.thermal, p_eff, poles=poles)
+            temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
+            polled = (int(st.step) % poll) == 0
+            trig = (temp >= fp.t_crit_c) & polled
+            cool = (temp <= c.resume_below_c) & polled
+            throttled = torch.where(deg_t, (st.throttled | trig) & ~cool,
+                                    False)
+            freq = torch.where(
+                deg_t,
+                torch.where(throttled, c.throttle_level,
+                            torch.clamp(st.freq + self.ramp, max=1.0)),
+                freq)
+            # reactive lanes count fresh throttle engagements, v24 lanes
+            # T_crit crossings
+            events = st.events + torch.where(
+                reactive, (trig & ~st.throttled).any(dim=-1),
+                (temp > fp.t_crit_c).any(dim=-1)).to(torch.int32)
+            hint = torch.where(deg_t, p_eff, hint)
+
         return (st._replace(thermal=thermal_next, filtration=ft, freq=freq,
-                            step=st.step + 1, events=events),
+                            step=st.step + 1, events=events,
+                            throttled=throttled,
+                            rho_last=rho if degraded is not None
+                            else st.rho_last,
+                            stale=stale if stale is not None else st.stale,
+                            degraded=degraded if degraded is not None
+                            else st.degraded),
                 self._output(freq, temp, hint))
 
     def _output(self, freq, temp, hint) -> SchedulerOutput:
@@ -255,22 +451,23 @@ class ThermalScheduler:
                                at_risk=freq < c.straggler_threshold,
                                balance=balance)
 
-    def _update_reactive_poll(self, st: SchedulerState, ft, p_now
-                              ) -> tuple[SchedulerState, SchedulerOutput]:
+    def _update_reactive_poll(self, st: SchedulerState, ft, p_now, poles,
+                              poll) -> tuple[SchedulerState, SchedulerOutput]:
         """§9 baseline: reactive DVFS + temperature polling with hysteresis.
 
         The plant runs at the frequency DECIDED LAST STEP (`st.freq`), the
-        sensor only observes the post-step junction every ``poll_ticks``
-        (phase = the fleet's global step), and the throttle latch releases
-        only once the junction cools below ``resume_below_c``.  ``events``
-        counts fresh throttle engagements, not T_crit crossings.
+        sensor only observes the post-step junction every ``poll`` steps
+        (per package under heterogeneity; phase = the fleet's global step),
+        and the throttle latch releases only once the junction cools below
+        ``resume_below_c``.  ``events`` counts fresh throttle engagements,
+        not T_crit crossings.
         """
         c, fp = self.cfg, self.fp
         p_eff = self._couple(p_now * st.freq ** c.power_exponent)
-        thermal_next = self.plant.step(st.thermal, p_eff)
+        thermal_next = self.plant.step(st.thermal, p_eff, poles=poles)
         temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
 
-        polled = int(st.step) % self.poll_ticks == 0
+        polled = (int(st.step) % poll) == 0
         trig = (temp >= fp.t_crit_c) & polled
         cool = (temp <= c.resume_below_c) & polled
         events = st.events + (trig & ~st.throttled).any(dim=-1).to(

@@ -79,6 +79,20 @@ def step(poles: PoleParams, state: torch.Tensor,
     return decay * state + (1.0 - decay) * gain * power_w[..., None]
 
 
+def step_fused(poles: PoleParams, state: torch.Tensor,
+               power_w: torch.Tensor) -> torch.Tensor:
+    """`step` with a·s + (1 − a)·G·P as one FMA over the rounded drive
+    term — how the reference's compiled fleet and DVFS loops round it (the
+    scheduler's pole plants and the `fleet_step` kernel do the same)."""
+    from repro_torch import fma_f32
+
+    decay = torch.as_tensor(poles.decay, dtype=torch.float32,
+                            device=state.device)
+    gain = torch.as_tensor(poles.gain, dtype=torch.float32,
+                           device=state.device)
+    return fma_f32(decay, state, (1.0 - decay) * gain * power_w[..., None])
+
+
 def delta_t(state: torch.Tensor) -> torch.Tensor:
     """ΔT per tile = sum over poles.  [..., n_tiles]"""
     return state.sum(dim=-1)

@@ -3,7 +3,9 @@
 Port of `repro.fleet.backends.broadcast`, the reference's default backend
 and the engine-level oracle: the scheduler's update math takes arbitrary
 leading batch dims, so one plain `update` call advances the whole fleet in
-lockstep, with the step/ptr clocks shared across packages.
+lockstep, with the step/ptr clocks shared across packages.  The
+per-package planes (heterogeneous draws, the degraded fallback, operator
+pins) ride in the state and broadcast through the same update.
 """
 from __future__ import annotations
 

@@ -21,12 +21,17 @@ Caller contract kept from the reference:
     [T, tiles, n] planes;
   * active-lane masks never enter the kernel: the engine applies them in its
     telemetry reductions over the traces;
+  * the per-package planes ride into the kernel: a heterogeneous fleet's
+    draws as the het rows (`_het_rows`), a fitted ROM's per-tile bank as
+    the same rows broadcast over the packages (`_rom_rows`), the degraded
+    fallback's held ρ / counter / latch as ``fb0`` and the operator pins as
+    ``mode0``; the returned state carries them back in its own dtypes;
   * a grid-family plant has no pole-bank plane: the backend drops
-    `run_block` and the engine steps it through the per-step path.  A
-    fitted ROM needs the kernel's per-tile pole rows and raises.
+    `run_block` and the engine steps it through the per-step path.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import pdu_gate
@@ -34,7 +39,8 @@ from repro_torch.core.density import _RTOK_INTERCEPT, _RTOK_SLOPE
 from repro_torch.core.fingerprint import FINGERPRINT
 from repro_torch.core.scheduler import SchedulerState, ThermalScheduler
 from repro_torch.fleet.backends.base import FleetBackend, register
-from repro_torch.kernels.fleet_step import FleetStepParams, fleet_step
+from repro_torch.kernels.fleet_step import (FleetStepParams, compact_rows,
+                                            fleet_step, layout)
 
 
 @register
@@ -52,11 +58,8 @@ class FusedBackend(FleetBackend):
             self.run_block = None
             self.params = None
             return
-        if plant.name != "pole":
-            raise NotImplementedError(
-                f"plant={plant.name!r} on the fused backend needs the "
-                f"kernel's per-tile pole rows (het rows), not ported yet: "
-                f"ROADMAP queue 1 step 5; run it on 'broadcast'")
+        # a fitted ROM's per-tile bank rides the het rows (`_rom_rows`)
+        self._rom_plant = plant if plant.name != "pole" else None
         c, fp = sched.cfg, sched.fp
         self.params = FleetStepParams(
             window=c.filtration_window,
@@ -67,7 +70,10 @@ class FusedBackend(FleetBackend):
             power_exponent=float(c.power_exponent),
             eta=float(sched.eta),
             t_allow=float(fp.t_crit_c - c.t_safe_margin_c - fp.t_ambient_c),
-            gain_sum=float(sched.plant.gain_sum),
+            # a fitted ROM's gains differ per tile: they ride its het rows
+            # alone, and the kernel refuses to run it without them
+            gain_sum=(None if self._rom_plant is not None
+                      else float(plant.gain_sum)),
             ahead=float(c.lookahead_ms / c.step_ms),
             # density.power_from_rho reads the module FINGERPRINT (not the
             # scheduler's fp): mirror that so both paths share one chain
@@ -81,12 +87,49 @@ class FusedBackend(FleetBackend):
             t_ambient_c=float(fp.t_ambient_c),
             throttle_floor=float(fp.throttle_floor),
             decay=tuple(float(d) for d in sched.poles.decay),
-            gain=tuple(float(g) for g in sched.poles.gain),
+            gain=(None if self._rom_plant is not None
+                  else tuple(float(g) for g in sched.poles.gain)),
             throttle_level=float(c.throttle_level),
             resume_below_c=float(c.resume_below_c),
             ramp=float(sched.ramp),
             poll_ticks=int(sched.poll_ticks),
+            fallback=bool(c.degraded_fallback),
+            stale_limit=int(c.stale_limit_steps),
+            recover=int(c.recover_steps),
+            mixed=bool(c.mixed_mode),
         )
+        # the kernel's wide layout walks Γ's compact rows: built here,
+        # where Γ's lifetime is owned, once for every window
+        self.rows = None
+        if (sched.gamma is not None and self.device.type == "cuda"
+                and layout(c.n_tiles, self.params) == "wide"):
+            self.rows = compact_rows(sched.gamma)
+
+    def _het_rows(self, pkg) -> torch.Tensor:
+        """Per-package draws as the kernel's het rows [2·n_poles + 3,
+        n_tiles | 1, n]: decay per pole, gain per pole, η, ΣG, poll."""
+        f32 = lambda x: x.to(torch.float32)
+        tr = lambda x: f32(x).permute(2, 1, 0)               # [np, t, n]
+        one = lambda x: f32(x).mT[None]                      # [1, t, n]
+        return torch.cat([tr(pkg.decay), tr(pkg.gain), one(pkg.eta),
+                          one(pkg.gain_sum), one(pkg.poll_ticks)]
+                         ).contiguous()
+
+    def _rom_rows(self, n: int) -> torch.Tensor:
+        """A fitted ROM bank as het rows [2·n_poles + 3, n_tiles, n]: the
+        per-tile gains and ΣG, the shared decays, η and poll, the same for
+        every package."""
+        p = self._rom_plant
+        n_poles, nt = p.poles.decay.shape[0], p.n_tiles
+        rows = np.empty((2 * n_poles + 3, nt, 1), np.float32)
+        rows[:n_poles] = np.asarray(p.poles.decay, np.float32)[:, None, None]
+        rows[n_poles:2 * n_poles] = np.asarray(p.poles.gain,
+                                               np.float32).T[:, :, None]
+        rows[2 * n_poles] = np.float32(p.eta)
+        rows[2 * n_poles + 1] = np.asarray(p.gain_sum, np.float32)[:, None]
+        rows[2 * n_poles + 2] = np.float32(self.sched.poll_ticks)
+        return torch.from_numpy(rows).to(self.device).expand(
+            2 * n_poles + 3, nt, n).contiguous()
 
     def kernel_inputs(self, state: SchedulerState, rho_trace: torch.Tensor
                       ) -> tuple[tuple, dict]:
@@ -108,7 +151,20 @@ class FusedBackend(FleetBackend):
                 self.params)
         thr0 = (None if state.throttled is None
                 else kn(state.throttled.to(torch.float32)))
-        return args, dict(thr0=thr0, step0=int(state.step))
+        if state.pkg is not None:
+            het = self._het_rows(state.pkg)
+        elif self._rom_plant is not None:
+            het = self._rom_rows(state.freq.shape[0])
+        else:
+            het = None
+        fb0 = (None if state.degraded is None
+               else (kn(state.rho_last.to(torch.float32)),
+                     state.stale.to(torch.float32).contiguous(),
+                     state.degraded.to(torch.float32).contiguous()))
+        mode0 = (None if state.ctrl_mode is None
+                 else state.ctrl_mode.to(torch.float32).contiguous())
+        return args, dict(het=het, thr0=thr0, step0=int(state.step),
+                          fb0=fb0, mode0=mode0, rows=self.rows)
 
     def run_block(self, state: SchedulerState, rho_trace: torch.Tensor):
         """Advance T steps in one kernel.  rho_trace: [T, n, tiles].
@@ -119,7 +175,7 @@ class FusedBackend(FleetBackend):
         ft = state.filtration
         w = ft.buf.shape[-2]
         args, kwargs = self.kernel_inputs(state, rho_trace)
-        temps, freqs, buf, th, ev, thr, _ = fleet_step(*args, **kwargs)
+        temps, freqs, buf, th, ev, thr, fb = fleet_step(*args, **kwargs)
         buf = buf.permute(2, 0, 1).contiguous()              # [n, W, tiles]
         ptr = torch.tensor(t % w, dtype=torch.int32)
         if isinstance(ft, pdu_gate.FiltrationStats):
@@ -135,5 +191,8 @@ class FusedBackend(FleetBackend):
             step=state.step + t,
             events=ev[0].to(state.events.dtype),
             throttled=None if thr is None else thr.mT > 0.5,
+            rho_last=None if fb is None else fb[0].mT.contiguous(),
+            stale=None if fb is None else fb[1].to(torch.int32),
+            degraded=None if fb is None else fb[2] > 0.5,
         )
         return state, temps.permute(0, 2, 1), freqs.permute(0, 2, 1)

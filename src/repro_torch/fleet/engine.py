@@ -32,9 +32,16 @@ State contract:
     CUDA; without a card it raises unless the caller passes
     ``device="cpu"``.
 
-Not ported yet: `run_survey` (Monte-Carlo plane, ROADMAP queue 1 step 5),
-the mesh backends and their ``devices=`` budget (queue 1 step 9), and
-state donation (PyTorch allocates each window's outputs afresh).
+`run_survey` is the §10 Monte-Carlo plane: per-(package, tile) peak
+temperature, exceedance and mean frequency, reduced on the device over
+``chunk``-step blocks of the fused kernel (or per step on the broadcast
+backend).  Fleets with per-package planes (heterogeneous draws, the
+degraded fallback, operator pins) report the fallback's lanes in
+``degraded_count`` and count events per lane mode, as the kernel does.
+
+Not ported yet: the mesh backends and their ``devices=`` budget (ROADMAP
+queue 1 step 9), and state donation (PyTorch allocates each window's
+outputs afresh).
 """
 from __future__ import annotations
 
@@ -68,7 +75,9 @@ class FleetTelemetry(NamedTuple):
     released_mtps: torch.Tensor   # Σ R_tok(ρ)·f — compute actually released
     throttled_mtps: torch.Tensor  # Σ R_tok(ρ)·(1−f) — compute held back
     at_risk_frac: torch.Tensor    # fraction of tiles under straggler threshold
-    degraded_count: torch.Tensor  # lanes on the reactive fallback (0 here)
+    # active lanes on the reactive fallback (0 whenever it is off) — the
+    # window reduce keeps the peak
+    degraded_count: torch.Tensor
 
     def as_dict(self) -> dict[str, float]:
         """Host-side scalar dict — ONE device→host copy for the whole
@@ -102,6 +111,17 @@ class FleetTelemetry(NamedTuple):
             at_risk_frac=self.at_risk_frac.mean(),
             degraded_count=self.degraded_count.max(),
         )
+
+
+class FleetSurvey(NamedTuple):
+    """Per-(package, tile) lane reductions over a trace (the §10
+    Monte-Carlo plane), accumulated on the device — `FleetEngine.run_survey`."""
+
+    peak_t_c: torch.Tensor       # [n, tiles] max junction temp past burn-in
+    exceed_frac: torch.Tensor    # [n, tiles] fraction of counted steps > T_crit
+    freq_mean: torch.Tensor      # [n, tiles] mean delivered frequency (all steps)
+    steps: torch.Tensor          # int32 — trace length
+    counted_steps: torch.Tensor  # int32 — steps past burn-in
 
 
 def _stack(records: list[FleetTelemetry]) -> FleetTelemetry:
@@ -214,10 +234,86 @@ class FleetEngine:
         self._debug_check_finite(state, telem)
         return state, telem
 
-    def run_survey(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FleetEngine.run_survey (the Monte-Carlo plane) is not ported "
-            "yet: ROADMAP queue 1 step 5")
+    def run_survey(self, state: SchedulerState, rho_trace, burn_in: int = 0,
+                   chunk: int = 1024) -> tuple[SchedulerState, FleetSurvey]:
+        """Step a [T, n, tiles] trace accumulating PER-(package, tile)
+        reductions on the device — the Monte-Carlo plane.
+
+        Keeps one record per lane: the running peak junction temperature
+        and the T_crit exceedance fraction over the steps past
+        ``burn_in``, and the mean delivered frequency over the whole trace
+        (a Kahan-compensated sum) — the §10 per-trial statistics, with O(n)
+        accumulators instead of an O(T·n) trace.  A backend with a fused
+        `run_block` advances ``chunk``-step blocks through its kernel (one
+        launch each) and reduces the streamed traces; the others reduce
+        after every `update`.
+        """
+        self._check_trace(rho_trace)
+        t = rho_trace.shape[0]
+        if not 0 <= burn_in < t:
+            raise ValueError(f"burn_in={burn_in} outside the trace [0, {t})")
+        shape, dev = state.freq.shape, self.device
+        acc = (torch.full(shape, -torch.inf, device=dev),   # running peak T
+               torch.zeros(shape, device=dev),              # exceedance count
+               torch.zeros(shape, device=dev),              # Σ freq (Kahan)
+               torch.zeros(shape, device=dev))              # compensation
+        put = self.backend_impl.put_trace
+        if self.backend_impl.run_block is None:
+            state, acc = self._survey_steps(state, put(rho_trace), burn_in,
+                                            acc)
+        else:
+            for i in range(0, t, chunk):
+                state, acc = self._survey_block(
+                    state, put(rho_trace[i:i + chunk]), max(burn_in - i, 0),
+                    acc)
+        peak, exceed, fsum, _ = acc
+        return state, FleetSurvey(
+            peak_t_c=peak,
+            exceed_frac=exceed / (t - burn_in),
+            freq_mean=fsum / t,
+            steps=torch.tensor(t, dtype=_I32),
+            counted_steps=torch.tensor(t - burn_in, dtype=_I32))
+
+    @staticmethod
+    def _kahan(fsum, comp, x):
+        """Compensated add: a 3,000-step sequential f32 Σfreq otherwise
+        drifts ~1e-5 relative (peak is a max and the exceedance count small
+        exact integers, so only this accumulator needs compensation)."""
+        y = x - comp
+        tot = fsum + y
+        return tot, (tot - fsum) - y
+
+    def _survey_steps(self, state: SchedulerState, rho_trace, skip: int,
+                      acc):
+        """Per-step survey: one `update` a step, the accumulators advanced
+        after each (the first ``skip`` steps count toward Σfreq only)."""
+        peak, exceed, fsum, comp = acc
+        t_crit = self.fp.t_crit_c
+        for k, rho in enumerate(rho_trace):
+            state, out = self.backend_impl.update(state, rho)
+            if k >= skip:
+                peak = torch.maximum(peak, out.temp_c)
+                exceed = exceed + (out.temp_c > t_crit).to(exceed.dtype)
+            fsum, comp = self._kahan(fsum, comp, out.freq)
+        return state, (peak, exceed, fsum, comp)
+
+    def _survey_block(self, state: SchedulerState, rho_trace, skip: int,
+                      acc):
+        """Fused-backend survey: one kernel launch for the block, then the
+        lane reductions over its streamed temp/freq traces."""
+        peak, exceed, fsum, comp = acc
+        state, temps, freqs = self.backend_impl.run_block(state, rho_trace)
+        if skip < temps.shape[0]:
+            counted = temps[skip:]
+            peak = torch.maximum(peak, counted.amax(0))
+            exceed = exceed + (counted > self.fp.t_crit_c).sum(0).to(
+                exceed.dtype)
+        # the block's Σfreq in f64 is exact (f32 terms in [0.05, 1], at most
+        # a few thousand), so its f32 rounding does not depend on the layout
+        # or device the sum ran on
+        fsum, comp = self._kahan(fsum, comp,
+                                 freqs.sum(0, dtype=torch.float64).float())
+        return state, (peak, exceed, fsum, comp)
 
     def block_traces(self, state: SchedulerState, rho_trace):
         """(state', temps [T, n, tiles], freqs [T, n, tiles]) for one
@@ -286,8 +382,15 @@ class FleetEngine:
             rho = rho[:, None]
         return rho.expand(n, self.cfg.n_tiles)
 
+    def _degraded_count(self, state: SchedulerState, active=None):
+        """Active lanes on the reactive fallback (int32; 0 without it)."""
+        if state.degraded is None:
+            return torch.zeros((), dtype=_I32, device=self.device)
+        deg = state.degraded if active is None else state.degraded & active
+        return deg.sum(dtype=_I32)
+
     def _masked_step_telemetry(self, rho, out, prev_events, events,
-                               active) -> FleetTelemetry:
+                               active, degraded_count) -> FleetTelemetry:
         """One step's telemetry reduced over the active lanes only."""
         mf = active[:, None].expand(out.temp_c.shape).reshape(-1)
         cnt = mf.sum().clamp(min=1)
@@ -313,7 +416,7 @@ class FleetEngine:
             at_risk_frac=torch.where(
                 mf, freq < self.cfg.straggler_threshold, False).sum()
             / fcnt,
-            degraded_count=torch.zeros((), dtype=_I32, device=self.device),
+            degraded_count=degraded_count,
         )
 
     def _step_impl(self, state: SchedulerState, rho: torch.Tensor,
@@ -322,9 +425,14 @@ class FleetEngine:
                        else torch.where(active, state.events, 0
                                         ).sum(dtype=_I32))
         state, out = self.backend_impl.update(state, rho)
+        if self.cfg.degraded_fallback:
+            # telemetry reduces over the SANITISED density the controller
+            # acted on (this step's held ρ), never raw NaN/Inf words
+            rho = state.rho_last
         if active is not None:
             return state, out, self._masked_step_telemetry(
-                rho, out, prev_events, state.events, active)
+                rho, out, prev_events, state.events, active,
+                self._degraded_count(state, active))
         temp = out.temp_c.reshape(-1)
         sorted_t = torch.sort(temp).values
         rtok = rtok_from_rho(rho)                    # [n_packages, n_tiles]
@@ -343,7 +451,7 @@ class FleetEngine:
             released_mtps=(rtok * out.freq).sum(),
             throttled_mtps=(rtok * (1.0 - out.freq)).sum(),
             at_risk_frac=out.at_risk.to(torch.float32).mean(),
-            degraded_count=torch.zeros((), dtype=_I32, device=self.device),
+            degraded_count=self._degraded_count(state),
         )
         return state, out, telem
 
@@ -355,6 +463,16 @@ class FleetEngine:
             records.append(telem)
         return state, _stack(records)
 
+    @staticmethod
+    def _step0(state0: SchedulerState) -> int:
+        """The fleet's global step at window entry (a shared host clock)."""
+        return int(state0.step)
+
+    def _poll(self, state0: SchedulerState):
+        """The sensor's polling period: shared, or per package and tile."""
+        return (self.sched.poll_ticks if state0.pkg is None
+                else state0.pkg.poll_ticks)
+
     def _reactive_poll_events(self, state0: SchedulerState,
                               temps: torch.Tensor,
                               active=None) -> torch.Tensor:
@@ -363,11 +481,11 @@ class FleetEngine:
         pre-window latch and global step, so trace-derived telemetry counts
         the same events as the state counter the kernel advances."""
         c, fp = self.cfg, self.fp
-        step0 = int(state0.step)
+        step0, poll = self._step0(state0), self._poll(state0)
         latch = state0.throttled
         ev = []
         for k, temp in enumerate(temps):
-            polled = (step0 + k) % self.sched.poll_ticks == 0
+            polled = (step0 + k) % poll == 0
             trig = (temp >= fp.t_crit_c) & polled
             cool = (temp <= c.resume_below_c) & polled
             fresh = (trig & ~latch).any(dim=-1)                  # [n]
@@ -377,14 +495,88 @@ class FleetEngine:
             latch = (latch | trig) & ~cool
         return torch.stack(ev)
 
-    def _event_plane(self, temps, state0: SchedulerState, active=None):
-        """[T] event counts for one window's streamed temperatures."""
+    def _fallback_replay(self, state0: SchedulerState, rho_trace, temps,
+                         active=None):
+        """Replay the degraded-fallback recurrence of
+        `ThermalScheduler.update` over a window's raw density and streamed
+        temperatures: ([T] event counts, [T] degraded-lane counts,
+        [T, n, tiles] sanitised ρ).  From the pre-window state, so the
+        trace-derived telemetry counts the same events the kernel does
+        (fresh engagements on reactive lanes, T_crit crossings on the
+        others) and the MTPS reductions never see a non-finite word."""
+        c, fp = self.cfg, self.fp
+        step0, poll = self._step0(state0), self._poll(state0)
+        lim, rec = c.stale_limit_steps, c.recover_steps
+        ctrl = state0.ctrl_mode
+        rho_last, stale = state0.rho_last, state0.stale
+        deg, thr = state0.degraded, state0.throttled
+        ev, dc, safe = [], [], []
+        for k in range(temps.shape[0]):
+            rho, temp = rho_trace[k], temps[k]
+            finite = torch.isfinite(rho)
+            valid = finite.all(dim=-1)
+            rho_last = torch.where(finite, rho, rho_last)
+            stale = torch.where(valid, (stale - 1).clamp(min=0),
+                                (stale + 1).clamp(max=lim + rec))
+            deg = (deg & (stale > 0)) | (stale >= lim)
+            # the reactive mask: the staleness latch OR the operator's pin
+            reactive = deg if ctrl is None else deg | ctrl
+            polled = (step0 + k) % poll == 0
+            trig = (temp >= fp.t_crit_c) & polled
+            cool = (temp <= c.resume_below_c) & polled
+            deg_t = reactive[..., None]
+            e = torch.where(reactive, (trig & ~thr).any(dim=-1),
+                            (temp > fp.t_crit_c).any(dim=-1))
+            thr = torch.where(deg_t, (thr | trig) & ~cool, False)
+            vis = deg
+            if active is not None:
+                e, vis = e & active, deg & active
+            ev.append(e.sum(dtype=_I32))
+            dc.append(vis.sum(dtype=_I32))
+            safe.append(rho_last)
+        return torch.stack(ev), torch.stack(dc), torch.stack(safe)
+
+    def _mixed_mode_events(self, state0: SchedulerState, temps,
+                           active=None) -> torch.Tensor:
+        """[T] event plane of an operator-pinned fleet without the
+        fallback: pinned lanes count fresh throttle engagements (the latch
+        replayed from the pre-window state), v24 lanes T_crit crossings."""
+        c, fp = self.cfg, self.fp
+        step0, poll = self._step0(state0), self._poll(state0)
+        ctrl, latch = state0.ctrl_mode, state0.throttled
+        ev = []
+        for k, temp in enumerate(temps):
+            polled = (step0 + k) % poll == 0
+            trig = (temp >= fp.t_crit_c) & polled
+            cool = (temp <= c.resume_below_c) & polled
+            e = torch.where(ctrl, (trig & ~latch).any(dim=-1),
+                            (temp > fp.t_crit_c).any(dim=-1))
+            latch = torch.where(ctrl[..., None], (latch | trig) & ~cool,
+                                False)
+            if active is not None:
+                e = e & active
+            ev.append(e.sum(dtype=_I32))
+        return torch.stack(ev)
+
+    def _event_plane(self, rho_trace, temps, state0: SchedulerState,
+                     active=None):
+        """One window's ([T] event counts, [T] degraded-lane counts, ρ —
+        sanitised under the degraded fallback, passed through otherwise)."""
+        deg_count = torch.zeros((temps.shape[0],), dtype=_I32,
+                                device=self.device)
         if self.cfg.mode == "reactive_poll":
-            return self._reactive_poll_events(state0, temps, active)
-        crossed = (temps > self.fp.t_crit_c).any(dim=-1)          # [T, n]
-        if active is not None:
-            crossed = crossed & active[None, :]
-        return crossed.sum(dim=-1, dtype=_I32)
+            ev_step = self._reactive_poll_events(state0, temps, active)
+        elif self.cfg.degraded_fallback:
+            ev_step, deg_count, rho_trace = self._fallback_replay(
+                state0, rho_trace, temps, active)
+        elif self.cfg.mixed_mode:
+            ev_step = self._mixed_mode_events(state0, temps, active)
+        else:
+            crossed = (temps > self.fp.t_crit_c).any(dim=-1)      # [T, n]
+            if active is not None:
+                crossed = crossed & active[None, :]
+            ev_step = crossed.sum(dim=-1, dtype=_I32)
+        return ev_step, deg_count, rho_trace
 
     def _telemetry_from_traces(self, rho_trace, temps, freqs, prev_events,
                                state0: SchedulerState,
@@ -392,7 +584,8 @@ class FleetEngine:
         """[T]-leaved telemetry from per-step temperature/frequency traces
         — the fused backend's telemetry plane, field for field the stacked
         per-step records."""
-        ev_step = self._event_plane(temps, state0, active)
+        ev_step, deg_count, rho_trace = self._event_plane(
+            rho_trace, temps, state0, active)
         t, n = temps.shape[0], temps.shape[1]
         tf = temps.reshape(t, -1)
         ff = freqs.reshape(t, -1)
@@ -417,7 +610,7 @@ class FleetEngine:
                 throttled_mtps=(rtok * (1.0 - freqs)).reshape(t, -1).sum(
                     dim=1),
                 at_risk_frac=(ff < thr).to(torch.float32).mean(dim=1),
-                degraded_count=zeros,
+                degraded_count=deg_count,
             )
         mf = active[:, None].expand(temps.shape[1:]).reshape(-1)
         cnt = mf.sum().clamp(min=1)
@@ -438,7 +631,7 @@ class FleetEngine:
             released_mtps=msum((rtok * freqs).reshape(t, -1)),
             throttled_mtps=msum((rtok * (1.0 - freqs)).reshape(t, -1)),
             at_risk_frac=msum((ff < thr).to(torch.float32)) / fcnt,
-            degraded_count=zeros,
+            degraded_count=deg_count,
         )
 
     def _run_block_impl(self, state: SchedulerState, rho_trace: torch.Tensor,

@@ -9,18 +9,47 @@
 // The op order is the plain version's (`fleet_step_reference` in
 // repro_torch/kernels/fleet_step.py), which the tests hold to the reference.
 //
-// Layout.  A block holds 32 packages, one per lane, and NW warps; warp w
-// carries the TPT adjacent tiles w·TPT … w·TPT + TPT − 1 (TPT a template
-// parameter, the fewest of 1, 2, 4, 8 that keep NW ≤ FS_MAX_WARPS: 2
-// tiles × 24 warps at 47 tiles, 8 × 16 at the wrapper's 128).  So a warp
-// is 32 packages at one tile: every load of ρ and store of temps and freqs
-// is 128 consecutive bytes (packages are the contiguous axis of every
-// plane), a warp's Γ rows are the same for every lane, and whatever
-// per-package plane a later mode adds (het rows, fb0, mode0) is one more
-// register per tile in the same layout.  Pole, stats, frequency and latch
-// state live in registers for the whole window.  The main path's
-// configuration (coupled v24, cubic power law) is a second template
-// parameter, so its kernel carries no other mode's branches.
+// Packed layout (up to 128 tiles).  A block holds 32 packages, one per
+// lane, and NW warps; warp w carries the TPT adjacent tiles w·TPT …
+// w·TPT + TPT − 1 (TPT a template parameter, the fewest of 1, 2, 4, 8 that
+// keep NW ≤ FS_MAX_WARPS: 2 tiles × 24 warps at 47 tiles, 8 × 16 at 128).
+// So a warp is 32 packages at one tile: every load of ρ and store of temps
+// and freqs is 128 consecutive bytes (packages are the contiguous axis of
+// every plane), and a warp's Γ rows are the same for every lane.  Pole,
+// stats, frequency and latch state live in registers for the whole
+// window.  The main path's configuration (coupled v24, cubic power law) is
+// a second template parameter, so its kernel carries no other mode's
+// branches; the per-package planes are a third (PLANES, never with MAIN).
+//
+// Per-package planes (PLANES).  The lane that owns a package holds its own
+// values: the het rows (decay and gain per pole, η, ΣG, poll) are loaded
+// in the prologue as registers per tile — −(1 − η) and 1/(η·ΣG) formed
+// there with the plain version's f32 ops, (1 − a)·G per pole likewise — so
+// identical draws give the homogeneous kernel's bits.  The degraded
+// fallback holds the last finite ρ per tile in a register and replaces a
+// non-finite word before anything reads it (the filtration, P_now, the Γ
+// walk: a sanitised plane keeps the sparse walk exact); the sanitised ρ
+// goes to a scratch plane, which the ring reads instead of ρ.  Whether a
+// package's step was finite over all its tiles crosses warps: a shared
+// step stamp, read after the step's barrier, where every warp advances its
+// own copy of the package's f32 staleness counter and latch (the same
+// values in every warp).  The operator pin is one register.  A reactive
+// lane (latched or pinned) takes the merged branch: the plant at last
+// step's frequency, the sensor polled on the global step step0 + s with
+// its own period, the hysteresis latch, fresh engagements as events.
+//
+// Wide layout (more than 128 tiles; the packed layout's shared memory, two
+// exchange planes of n_tiles × 128 floats and the walk records, outgrows
+// the SM past that; up to 4,096 tiles).  One block per package, one thread
+// per tile (WT tiles a thread past 1,024), everything else as above, in a
+// simpler schedule: two barriers per step (after the pre-decision planes,
+// after the power plane).  Each thread walks its own Γ row through a
+// compact list the wrapper builds once per Γ — the row's non-zero columns,
+// ascending, stored [entry][row] so a warp's reads are consecutive — and a
+// block whose plane holds a non-finite value in a step walks Γ densely.
+// A coupled fleet with a reactive plane (fallback or pin) takes this
+// layout at any width: the packed schedule forms step s + 1's P_prev
+// before step s's merged branch settles a reactive lane's frequency.
 //
 // Γ products.  The prologue compacts Γ (dense, as the wrapper passes it),
 // per warp, into the columns where any of the warp's TPT rows is non-zero,
@@ -92,10 +121,11 @@
 // Numerics: built without fast math and with -fmad=false, so each
 // elementwise multiply and add rounds separately as in the plain version;
 // explicit fmaf only where every version fuses: the mat-vecs (accumulated
-// over j = 0..n-1, the order of core.coupling.apply_coupling) and the
+// over j = 0..n-1, the order of core.coupling.apply_coupling), the
 // multiply-adds of the three results that cancel — ΔT = α·R_tok + β in the
 // power chain, the centered moment csum (update and refresh) and the v24
-// budget (repro_torch.fma_f32); the 1/exponent law is pow (never cbrt) in
+// budget (repro_torch.fma_f32) — and the pole update a·s + (1 − a)·G·P,
+// which the reference's compiled loop contracts (thermal.step_fused); the 1/exponent law is pow (never cbrt) in
 // f64 rounded once to f32 (repro_torch.pow_f32); the budget multiplies by
 // the explicit reciprocal; min/max/clip propagate NaN like torch.minimum /
 // torch.clamp.
@@ -105,6 +135,8 @@
 
 #define FS_MAX_POLES 4
 #define FS_MAX_WARPS 24   // warps per block; past it a thread takes more tiles
+#define FS_PACKED_TILES 128   // the packed layout's widest fleet
+#define FS_WIDE_THREADS 1024  // the wide layout's block
 
 enum { MODE_V24 = 0, MODE_REACTIVE = 1, MODE_REACTIVE_POLL = 2, MODE_OFF = 3 };
 
@@ -114,6 +146,7 @@ struct FleetStepConsts {
   int T, n_tiles, n, window, recent, n_poles, mode, use_gamma, poll_ticks;
   int step0;
   int exp_kind;  // 3: x*x*x, 2: x*x, else powf(x, power_exponent)
+  int het, fallback, mixed, stale_limit, recover;  // the per-package planes
   float power_exponent, inv_exp;
   float tm, tm1, inv_q, inv_denom, ahead, rho_hi;
   float rtok_slope, rtok_icept, alpha, beta, inv_rth;
@@ -191,9 +224,68 @@ __device__ __forceinline__ int load_rec(const float* r, float (&g)[TPT]) {
   return __float_as_int(w[0]);
 }
 
+// The per-package planes' pointers: inputs (het rows [2·np + 3, nt, n],
+// held ρ [nt, n], counter [n], latch [n], pin [n]) and outputs (held ρ,
+// counter, latch, and the sanitised ρ [T, nt, n] the ring reads)
+struct Planes {
+  const float *het, *rl0, *st0, *dg0, *mode0;
+  float *rl, *st, *dg, *rho_s;
+};
+
+// Per-thread physics constants of one tile: the baked ones, or the het
+// rows' with the same f32 ops (so identical draws give the same bits)
+struct TileConsts {
+  float decay[FS_MAX_POLES], coef[FS_MAX_POLES];
+  float neg_one_m_eta, inv_eta_gain;
+  int poll;
+};
+
+__device__ __forceinline__ TileConsts tile_consts(const FleetStepConsts& c,
+                                                  const float* het,
+                                                  size_t at, size_t plane,
+                                                  bool ok) {
+  TileConsts t;
+#pragma unroll
+  for (int j = 0; j < FS_MAX_POLES; ++j) {
+    t.decay[j] = c.decay[j];
+    t.coef[j] = c.coef[j];
+  }
+  t.neg_one_m_eta = -c.one_m_eta;
+  t.inv_eta_gain = c.inv_eta_gain;
+  t.poll = c.poll_ticks;
+  if (c.het && ok) {
+    const int np_ = c.n_poles;
+#pragma unroll
+    for (int j = 0; j < FS_MAX_POLES; ++j) {
+      if (j < np_) {
+        const float a = het[j * plane + at], g = het[(np_ + j) * plane + at];
+        t.decay[j] = a;
+        t.coef[j] = (1.0f - a) * g;
+      }
+    }
+    const float eta = het[2 * np_ * plane + at];
+    const float gsum = het[(2 * np_ + 1) * plane + at];
+    t.neg_one_m_eta = -(1.0f - eta);
+    t.inv_eta_gain = 1.0f / (eta * gsum);
+    t.poll = (int)het[(2 * np_ + 2) * plane + at];
+  }
+  return t;
+}
+
+// The fallback's per-package counter and latch after one step
+__device__ __forceinline__ void fallback_step(const FleetStepConsts& c,
+                                              bool valid_step, float& stale,
+                                              float& degp) {
+  stale = valid_step ? fmaxf(stale - 1.0f, 0.0f)
+                     : fminf(stale + 1.0f, (float)(c.stale_limit + c.recover));
+  degp = ((degp > 0.5f && stale > 0.5f) || stale >= (float)c.stale_limit)
+             ? 1.0f : 0.0f;
+}
+
 // MAIN: the main path's configuration — coupled v24 with the cubic power
-// law — fixed at compile time, so its kernel carries no other mode's code
-template <int TPT, bool MAIN>
+// law — fixed at compile time, so its kernel carries no other mode's code.
+// PLANES: the per-package planes (het rows, fallback, pin) are compiled in
+template <int TPT, bool MAIN, bool PLANES>
 __global__ void __launch_bounds__(32 * FS_MAX_WARPS)
 fleet_step_kernel(const FleetStepConsts c,
                   const float* __restrict__ rho, const float* __restrict__ gamma,
@@ -203,7 +295,8 @@ fleet_step_kernel(const FleetStepConsts c,
                   const float* __restrict__ ev0, const float* __restrict__ thr0,
                   float* __restrict__ temps, float* __restrict__ freqs,
                   float* __restrict__ buf, float* __restrict__ th,
-                  float* __restrict__ ev, float* __restrict__ thr) {
+                  float* __restrict__ ev, float* __restrict__ thr,
+                  const Planes pl) {
   constexpr int RW = rec_words(TPT);
   const int nt = c.n_tiles, n = c.n, W = c.window, Q = c.recent;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -213,8 +306,14 @@ fleet_step_kernel(const FleetStepConsts c,
   const bool coupled = MAIN || c.use_gamma != 0;
   const bool v24 = MAIN || c.mode == MODE_V24;
   const bool rpoll = !MAIN && c.mode == MODE_REACTIVE_POLL;
+  const bool fb = PLANES && c.fallback != 0;
+  const bool merged = PLANES && (c.fallback != 0 || c.mixed != 0);
+  const bool het_poll = PLANES && c.het != 0;
   const int lag = Q == 0 ? W : Q;  // age of ring slot (ptr − Q) mod W
   const size_t plane = (size_t)nt * n;
+  // the ring's samples inside the window: raw ρ, or the fallback's
+  // sanitised copy (written by this thread before it reads it back)
+  const float* ring_src = fb ? pl.rho_s : rho;
 
   extern __shared__ __align__(16) float smem[];
   // exchange planes [2 steps][tile][P_ahead, P_now, P_prev, plant power]
@@ -227,8 +326,9 @@ fleet_step_kernel(const FleetStepConsts c,
   int* s_ev = s_ulen + 32;            // [2][32] event stamps
   int* s_bx = s_ev + 64;              // [2][32] non-finite stamps, x planes
   int* s_bp = s_bx + 64;              // [2][32] non-finite stamps, pw plane
+  int* s_nf = s_bp + 64;              // [2][32] non-finite ρ stamps (fb)
 
-  for (int i = threadIdx.x; i < 192; i += blockDim.x) s_ev[i] = 0;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_ev[i] = 0;
   if (coupled) {
     // this warp's union walk: the columns where any of its tiles' Γ rows is
     // non-zero, ascending, one ballot per 32 columns (a NaN entry counts as
@@ -257,9 +357,13 @@ fleet_step_kernel(const FleetStepConsts c,
     if (lane == 0) s_ulen[warp] = cnt;
   }
 
-  // ring slot written at `step` (step < 0: before the window, from buf0)
+  // ring slot written at `step` (step < 0: before the window, from buf0);
+  // the sanitised copy is read through L2 (ld.cg), never a read-only path
+  auto ld_src = [&](size_t i) -> float {
+    return fb ? __ldcg(ring_src + i) : ring_src[i];
+  };
   auto ring_at = [&](int step, size_t at) -> float {
-    return step >= 0 ? rho[(size_t)step * plane + at]
+    return step >= 0 ? ld_src((size_t)step * plane + at)
                      : buf0[(size_t)(step + W) * plane + at];
   };
 
@@ -267,6 +371,8 @@ fleet_step_kernel(const FleetStepConsts c,
   float gd[TPT], r_n[TPT], xo_n[TPT], xr_n[TPT];
   float p_now[TPT], p_prev[TPT], hint_u[TPT], f_new[TPT], power[TPT];
   bool latch[TPT];
+  TileConsts tc[PLANES ? TPT : 1];
+  float held[PLANES ? TPT : 1];      // the fallback's last finite ρ
 #pragma unroll
   for (int k = 0; k < TPT; ++k) {
     const int tile = warp * TPT + k;
@@ -281,31 +387,51 @@ fleet_step_kernel(const FleetStepConsts c,
     f[k] = ok ? freq0[at] : 1.0f;
     f_new[k] = f[k];
     power[k] = 0.0f;
-    latch[k] = (rpoll && ok) ? thr0[at] > 0.5f : false;
+    latch[k] = ((rpoll || merged) && ok) ? thr0[at] > 0.5f : false;
     gd[k] = (coupled && tile < nt) ? gamma[(size_t)tile * nt + tile] : 1.0f;
     r_n[k] = ok ? rho[at] : 1.0f;              // step 0's ρ and ring reads
     xo_n[k] = ok ? ring_at(-W, at) : 0.0f;
     xr_n[k] = ok ? ring_at(-lag, at) : 0.0f;
+    if constexpr (PLANES) {
+      tc[k] = tile_consts(c, pl.het, at, plane, ok);
+      held[k] = (fb && ok) ? pl.rl0[at] : 1.0f;
+    }
   }
   float evc = (warp == 0 && valid) ? ev0[pkg] : 0.0f;  // tile 0 owns the count
+  // the package's fallback counter and latch (every warp keeps a copy)
+  float stale = (fb && valid) ? pl.st0[pkg] : 0.0f;
+  float degp = (fb && valid) ? pl.dg0[pkg] : 0.0f;
+  const float pin = (PLANES && c.mixed && valid) ? pl.mode0[pkg] : 0.0f;
+  bool deg = false;          // this step's reactive mask (merged branch)
   int to_refresh = W - 1;   // steps until the ring is age-ordered again
   int to_poll = (int)(((long long)c.poll_ticks
                        - ((long long)c.step0 % c.poll_ticks)) % c.poll_ticks);
 
   // ---- the step's three phases ------------------------------------------
-  // pre(s): O(1) sliding filtration (+ exact refresh at wraparound), P_now
-  // and, for v24, P_ahead and P_prev = P_now·f^e with f = step s − 1's
-  // frequency; the coupled planes go to x buffer s & 1
+  // pre(s): the fallback's hold, O(1) sliding filtration (+ exact refresh
+  // at wraparound), P_now and, for v24, P_ahead and P_prev = P_now·f^e with
+  // f = step s − 1's frequency; the coupled planes go to x buffer s & 1
   auto pre = [&](int s) {
     const bool refresh = to_refresh == 0;
     to_refresh = refresh ? W - 1 : to_refresh - 1;
-    bool bad = false;
+    bool bad = false, stale_word = false;
 #pragma unroll
     for (int k = 0; k < TPT; ++k) {
       const int tile = warp * TPT + k;
       if (tile >= nt) continue;
       const size_t at = (size_t)tile * n + pkg;
-      const float r = r_n[k], x_old = xo_n[k], x_rec = xr_n[k];
+      float r = r_n[k];
+      if constexpr (PLANES) {
+        if (fb) {
+          if (!isfinite(r)) {
+            r = held[k];
+            stale_word = true;
+          }
+          held[k] = r;
+          if (valid) pl.rho_s[(size_t)s * plane + at] = r;
+        }
+      }
+      const float x_old = xo_n[k], x_rec = xr_n[k];
       float wsum_n = (wsum[k] - x_old) + r;
       float csum_n = fmaf(c.tm, r, fmaf(c.tm1, x_old, csum[k] - wsum[k]));
       float rsum_n = (rsum[k] - x_rec) + r;
@@ -313,10 +439,10 @@ fleet_step_kernel(const FleetStepConsts c,
         // recompute the three sums slot by slot, the order of the port's
         // `exact_stats`; slot j holds ρ of step s − W + 1 + j
         float a = 0.0f, b = 0.0f, d = 0.0f;
-        const float* x = rho + (size_t)(s - W + 1) * plane + at;
+        const size_t x = (size_t)(s - W + 1) * plane + at;
 #pragma unroll 4
         for (int j = 0; j < W; ++j) {
-          const float xj = valid ? x[(size_t)j * plane] : 0.0f;
+          const float xj = valid ? ld_src(x + (size_t)j * plane) : 0.0f;
           a = a + xj;
           b = fmaf((float)j - c.tm, xj, b);
           if (j >= W - Q) d = d + xj;
@@ -341,6 +467,7 @@ fleet_step_kernel(const FleetStepConsts c,
       }
     }
     if (bad && valid) s_bx[(s & 1) * 32 + lane] = s + 1;
+    if (stale_word && valid) s_nf[(s & 1) * 32 + lane] = s + 1;
   };
 
   // The Γ walk of iteration s: the plant product on step s − 1's power
@@ -400,10 +527,16 @@ fleet_step_kernel(const FleetStepConsts c,
     }
   };
 
-  // law(s): the control law on step s's walk results; power to pw buffer
-  // s & 1
+  // law(s): the fallback's counter and latch for step s (its finite stamp
+  // is complete after the barrier), then the control law on step s's walk
+  // results; power to pw buffer s & 1
   auto law = [&](int s, const float (&ga)[TPT], const float (&gn)[TPT],
                  const float (&gp)[TPT]) {
+    if constexpr (PLANES) {
+      if (fb) fallback_step(c, s_nf[(s & 1) * 32 + lane] != s + 1, stale,
+                            degp);
+      deg = (c.fallback ? (c.mixed ? fmaxf(degp, pin) : degp) : pin) > 0.5f;
+    }
     bool bad = false;
     float* pw = s_x + (s & 1) * pn + 96 + lane;
 #pragma unroll
@@ -416,8 +549,12 @@ fleet_step_kernel(const FleetStepConsts c,
         if (j < c.n_poles) dt = dt + th_r[k][j];
       float fu;
       if (v24) {
-        const float budget =
-            fmaf(-c.one_m_eta, dt, c.t_allow) * c.inv_eta_gain;
+        float nme = -c.one_m_eta, ieg = c.inv_eta_gain;
+        if constexpr (PLANES) {
+          nme = tc[k].neg_one_m_eta;
+          ieg = tc[k].inv_eta_gain;
+        }
+        const float budget = fmaf(nme, dt, c.t_allow) * ieg;
         if (coupled) {
           // the lower of the law's two bases, one pow (see law_base)
           const float neigh = gp[k] - gd[k] * p_prev[k];
@@ -430,7 +567,8 @@ fleet_step_kernel(const FleetStepConsts c,
           f_new[k] = clip(pow_rn(budget / nmax(hint_u[k], 1e-3f), c.inv_exp),
                           0.05f, 1.0f);
         }
-        fu = f_new[k];
+        // a reactive lane's plant runs at last step's frequency
+        fu = (merged && deg) ? f[k] : f_new[k];
       } else if (!MAIN && c.mode == MODE_REACTIVE) {
         const bool hot = (c.t_ambient + dt) >= c.t_crit;
         f_new[k] = hot ? c.throttle_floor : nmin(f[k] + 0.1f, 1.0f);
@@ -454,9 +592,9 @@ fleet_step_kernel(const FleetStepConsts c,
   // plant(s): the poles on step s's Γ·power, temp, events, outputs
   auto plant = [&](int s, const float (&p_eff)[TPT]) {
     // sensor polled on the GLOBAL step, so window boundaries never reset a
-    // package's cadence (reactive_poll)
-    const bool polled = to_poll == 0;
-    to_poll = polled ? c.poll_ticks - 1 : to_poll - 1;
+    // package's cadence (reactive_poll and the merged branch)
+    const bool polled_all = to_poll == 0;
+    to_poll = polled_all ? c.poll_ticks - 1 : to_poll - 1;
     bool event = false;
 #pragma unroll
     for (int k = 0; k < TPT; ++k) {
@@ -466,20 +604,30 @@ fleet_step_kernel(const FleetStepConsts c,
 #pragma unroll
       for (int j = 0; j < FS_MAX_POLES; ++j) {
         if (j < c.n_poles) {
-          th_r[k][j] = c.decay[j] * th_r[k][j] + c.coef[j] * p_eff[k];
+          float a = c.decay[j], b = c.coef[j];
+          if constexpr (PLANES) {
+            a = tc[k].decay[j];
+            b = tc[k].coef[j];
+          }
+          th_r[k][j] = fmaf(a, th_r[k][j], b * p_eff[k]);
           dt = (j == 0) ? th_r[k][0] : dt + th_r[k][j];
         }
       }
       const float temp = c.t_ambient + dt;
-      if (rpoll) {
+      bool polled = polled_all;
+      if constexpr (PLANES) {
+        if (het_poll) polled = (c.step0 + s) % tc[k].poll == 0;
+      }
+      if (rpoll || (merged && deg)) {
         // events = fresh throttle engagements
         const bool trig = polled && temp >= c.t_crit;
         const bool cool = polled && temp <= c.resume_below;
         if (trig && !latch[k]) event = true;
         latch[k] = (latch[k] || trig) && !cool;
         f_new[k] = latch[k] ? c.throttle_level : nmin(f[k] + c.ramp, 1.0f);
-      } else if (temp > c.t_crit) {
-        event = true;
+      } else {
+        latch[k] = false;
+        if (temp > c.t_crit) event = true;
       }
       f[k] = f_new[k];
       if (valid) {
@@ -546,9 +694,287 @@ fleet_step_kernel(const FleetStepConsts c,
 #pragma unroll
     for (int j = 0; j < FS_MAX_POLES; ++j)
       if (j < c.n_poles) th[j * plane + at] = th_r[k][j];
-    if (rpoll) thr[at] = latch[k] ? 1.0f : 0.0f;
+    if (thr != nullptr) thr[at] = latch[k] ? 1.0f : 0.0f;
+    if constexpr (PLANES) {
+      if (fb) pl.rl[at] = held[k];
+    }
   }
-  if (warp == 0) ev[pkg] = evc;
+  if (warp == 0) {
+    ev[pkg] = evc;
+    if (fb) {
+      pl.st[pkg] = stale;
+      pl.dg[pkg] = degp;
+    }
+  }
+}
+
+// The wide layout: one block per package, thread i carries tiles i, i + B,
+// … (WT of them, B = blockDim.x).  The Γ rows come as the wrapper's
+// compact lists: entry e of row r at cols/vals[e·nt + r], e < len,
+// ascending columns, zero-padded past a row's non-zeros (a padded entry
+// adds an exact zero to a finite walk).  Shared memory: the three
+// pre-decision planes and the power plane, [4][nt] floats.
+template <int WT>
+__global__ void __launch_bounds__(FS_WIDE_THREADS)
+fleet_step_wide_kernel(const FleetStepConsts c,
+                       const float* __restrict__ rho,
+                       const float* __restrict__ gamma,
+                       const int* __restrict__ g_cols,
+                       const float* __restrict__ g_vals, int g_len,
+                       const float* __restrict__ buf0,
+                       const float* __restrict__ th0,
+                       const float* __restrict__ stats0,
+                       const float* __restrict__ freq0,
+                       const float* __restrict__ ev0,
+                       const float* __restrict__ thr0,
+                       float* __restrict__ temps, float* __restrict__ freqs,
+                       float* __restrict__ buf, float* __restrict__ th,
+                       float* __restrict__ ev, float* __restrict__ thr,
+                       const Planes pl) {
+  const int nt = c.n_tiles, n = c.n, W = c.window, Q = c.recent;
+  const int pkg = blockIdx.x, B = blockDim.x;
+  const bool coupled = c.use_gamma != 0;
+  const bool v24 = c.mode == MODE_V24;
+  const bool rpoll = c.mode == MODE_REACTIVE_POLL;
+  const bool fb = c.fallback != 0;
+  const bool merged = c.fallback != 0 || c.mixed != 0;
+  const int lag = Q == 0 ? W : Q;
+  const size_t plane = (size_t)nt * n;
+  const float* ring_src = fb ? pl.rho_s : rho;
+
+  extern __shared__ __align__(16) float smem[];
+  float* s_pa = smem;               // P_ahead [nt]
+  float* s_pn = s_pa + nt;          // P_now
+  float* s_pp = s_pn + nt;          // P_prev
+  float* s_pw = s_pp + nt;          // the plant's power
+  int* s_flag = reinterpret_cast<int*>(s_pw + nt);
+  // stamps: [0] non-finite pre-decision plane, [1] non-finite power plane,
+  // [2] non-finite ρ (fallback), [3..4] event of step parity 0/1
+  if (threadIdx.x < 5) s_flag[threadIdx.x] = 0;
+
+  auto ld_src = [&](size_t i) -> float {
+    return fb ? __ldcg(ring_src + i) : ring_src[i];
+  };
+  auto ring_at = [&](int step, size_t at) -> float {
+    return step >= 0 ? ld_src((size_t)step * plane + at)
+                     : buf0[(size_t)(step + W) * plane + at];
+  };
+  // row r of Γ times plane x: the compact list, or dense where a value of
+  // x is non-finite this step (0·inf and 0·NaN reach every row)
+  auto row_dot = [&](int r, const float* x, bool dense) -> float {
+    float acc = 0.0f;
+    if (dense) {
+      for (int j = 0; j < nt; ++j)
+        acc = fmaf(gamma[(size_t)r * nt + j], x[j], acc);
+    } else {
+      for (int e = 0; e < g_len; ++e)
+        acc = fmaf(g_vals[(size_t)e * nt + r], x[g_cols[(size_t)e * nt + r]],
+                   acc);
+    }
+    return acc;
+  };
+
+  float th_r[WT][FS_MAX_POLES], wsum[WT], csum[WT], rsum[WT], f[WT];
+  float gd[WT], p_now[WT], p_prev[WT], hint_u[WT], f_new[WT], power[WT];
+  float held[WT];
+  bool latch[WT];
+  TileConsts tc[WT];
+#pragma unroll
+  for (int k = 0; k < WT; ++k) {
+    const int tile = threadIdx.x + k * B;
+    const bool ok = tile < nt;
+    const size_t at = (size_t)tile * n + pkg;
+#pragma unroll
+    for (int j = 0; j < FS_MAX_POLES; ++j)
+      th_r[k][j] = (j < c.n_poles && ok) ? th0[j * plane + at] : 0.0f;
+    wsum[k] = ok ? stats0[at] : 0.0f;
+    csum[k] = ok ? stats0[plane + at] : 0.0f;
+    rsum[k] = ok ? stats0[2 * plane + at] : 0.0f;
+    f[k] = ok ? freq0[at] : 1.0f;
+    f_new[k] = f[k];
+    latch[k] = ((rpoll || merged) && ok) ? thr0[at] > 0.5f : false;
+    gd[k] = (coupled && ok) ? gamma[(size_t)tile * nt + tile] : 1.0f;
+    tc[k] = tile_consts(c, pl.het, at, plane, ok);
+    held[k] = (fb && ok) ? pl.rl0[at] : 1.0f;
+  }
+  float evc = threadIdx.x == 0 ? ev0[pkg] : 0.0f;
+  float stale = fb ? pl.st0[pkg] : 0.0f;
+  float degp = fb ? pl.dg0[pkg] : 0.0f;
+  const float pin = c.mixed ? pl.mode0[pkg] : 0.0f;
+  int to_refresh = W - 1;
+  __syncthreads();
+
+  for (int s = 0; s < c.T; ++s) {
+    // -- pre: the fallback's hold, filtration, pre-decision planes --------
+    const bool refresh = to_refresh == 0;
+    to_refresh = refresh ? W - 1 : to_refresh - 1;
+    bool bad = false, stale_word = false;
+#pragma unroll
+    for (int k = 0; k < WT; ++k) {
+      const int tile = threadIdx.x + k * B;
+      if (tile >= nt) continue;
+      const size_t at = (size_t)tile * n + pkg;
+      float r = rho[(size_t)s * plane + at];
+      if (fb) {
+        if (!isfinite(r)) {
+          r = held[k];
+          stale_word = true;
+        }
+        held[k] = r;
+        pl.rho_s[(size_t)s * plane + at] = r;
+      }
+      const float x_old = ring_at(s - W, at), x_rec = ring_at(s - lag, at);
+      float wsum_n = (wsum[k] - x_old) + r;
+      float csum_n = fmaf(c.tm, r, fmaf(c.tm1, x_old, csum[k] - wsum[k]));
+      float rsum_n = (rsum[k] - x_rec) + r;
+      if (refresh) {
+        float a = 0.0f, b = 0.0f, d = 0.0f;
+        const size_t x = (size_t)(s - W + 1) * plane + at;
+        for (int j = 0; j < W; ++j) {
+          const float xj = ld_src(x + (size_t)j * plane);
+          a = a + xj;
+          b = fmaf((float)j - c.tm, xj, b);
+          if (j >= W - Q) d = d + xj;
+        }
+        wsum_n = a; csum_n = b; rsum_n = d;
+      }
+      wsum[k] = wsum_n; csum[k] = csum_n; rsum[k] = rsum_n;
+      p_now[k] = power_from(c, r);
+      if (v24) {
+        const float pred = clip(rsum[k] * c.inv_q
+                                + (csum[k] * c.inv_denom) * c.ahead,
+                                0.0f, c.rho_hi);
+        const float p_ahead = power_from(c, pred);
+        if (coupled) {
+          p_prev[k] = p_now[k] * powe<false>(c, f[k]);
+          s_pa[tile] = p_ahead; s_pn[tile] = p_now[k]; s_pp[tile] = p_prev[k];
+          bad = bad || !finite3(p_ahead, p_now[k], p_prev[k]);
+        } else {
+          hint_u[k] = nmax(p_ahead, p_now[k]);
+        }
+      }
+    }
+    if (bad) s_flag[0] = s + 1;
+    if (stale_word) s_flag[2] = s + 1;
+    __syncthreads();
+    // step s − 1's events are complete
+    if (threadIdx.x == 0 && s >= 1 && s_flag[3 + ((s - 1) & 1)] == s)
+      evc = evc + 1.0f;
+    if (fb) fallback_step(c, s_flag[2] != s + 1, stale, degp);
+    const bool deg =
+        (c.fallback ? (c.mixed ? fmaxf(degp, pin) : degp) : pin) > 0.5f;
+
+    // -- law ------------------------------------------------------------
+    const bool dense_x = s_flag[0] == s + 1;
+    bool pbad = false;
+#pragma unroll
+    for (int k = 0; k < WT; ++k) {
+      const int tile = threadIdx.x + k * B;
+      if (tile >= nt) continue;
+      float dt = th_r[k][0];
+#pragma unroll
+      for (int j = 1; j < FS_MAX_POLES; ++j)
+        if (j < c.n_poles) dt = dt + th_r[k][j];
+      float fu;
+      if (v24) {
+        const float budget =
+            fmaf(tc[k].neg_one_m_eta, dt, c.t_allow) * tc[k].inv_eta_gain;
+        if (coupled) {
+          const float ga = row_dot(tile, s_pa, dense_x);
+          const float gn = row_dot(tile, s_pn, dense_x);
+          const float gp = row_dot(tile, s_pp, dense_x);
+          const float neigh = gp - gd[k] * p_prev[k];
+          const float base = law_base(
+              budget / nmax(nmax(ga, gn), 1e-3f),
+              nmax(budget - neigh, 1e-6f) / nmax(gd[k] * p_now[k], 1e-3f));
+          f_new[k] = nmin(clip(pow_rn(base, c.inv_exp), 0.05f, 1.0f),
+                          f[k] + 0.05f);
+        } else {
+          f_new[k] = clip(pow_rn(budget / nmax(hint_u[k], 1e-3f), c.inv_exp),
+                          0.05f, 1.0f);
+        }
+        fu = (merged && deg) ? f[k] : f_new[k];
+      } else if (c.mode == MODE_REACTIVE) {
+        const bool hot = (c.t_ambient + dt) >= c.t_crit;
+        f_new[k] = hot ? c.throttle_floor : nmin(f[k] + 0.1f, 1.0f);
+        fu = f_new[k];
+      } else if (c.mode == MODE_OFF) {
+        f_new[k] = 1.0f;
+        fu = 1.0f;
+      } else {
+        f_new[k] = f[k];
+        fu = f[k];
+      }
+      power[k] = p_now[k] * powe<false>(c, fu);
+      if (coupled) {
+        s_pw[tile] = power[k];
+        pbad = pbad || !isfinite(power[k]);
+      }
+    }
+    if (pbad) s_flag[1] = s + 1;
+    __syncthreads();
+
+    // -- plant, sensor, events, outputs ----------------------------------
+    const bool dense_p = s_flag[1] == s + 1;
+    bool event = false;
+#pragma unroll
+    for (int k = 0; k < WT; ++k) {
+      const int tile = threadIdx.x + k * B;
+      if (tile >= nt) continue;
+      const float pe = coupled ? row_dot(tile, s_pw, dense_p) : power[k];
+      float dt = 0.0f;
+#pragma unroll
+      for (int j = 0; j < FS_MAX_POLES; ++j) {
+        if (j < c.n_poles) {
+          th_r[k][j] = fmaf(tc[k].decay[j], th_r[k][j], tc[k].coef[j] * pe);
+          dt = (j == 0) ? th_r[k][0] : dt + th_r[k][j];
+        }
+      }
+      const float temp = c.t_ambient + dt;
+      const bool polled = (c.step0 + s) % tc[k].poll == 0;
+      if (rpoll || (merged && deg)) {
+        const bool trig = polled && temp >= c.t_crit;
+        const bool cool = polled && temp <= c.resume_below;
+        if (trig && !latch[k]) event = true;
+        latch[k] = (latch[k] || trig) && !cool;
+        f_new[k] = latch[k] ? c.throttle_level : nmin(f[k] + c.ramp, 1.0f);
+      } else {
+        latch[k] = false;
+        if (temp > c.t_crit) event = true;
+      }
+      f[k] = f_new[k];
+      const size_t o = (size_t)s * plane + (size_t)tile * n + pkg;
+      temps[o] = temp;
+      freqs[o] = f_new[k];
+    }
+    if (event) s_flag[3 + (s & 1)] = s + 1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && s_flag[3 + ((c.T - 1) & 1)] == c.T)
+    evc = evc + 1.0f;
+
+#pragma unroll
+  for (int k = 0; k < WT; ++k) {
+    const int tile = threadIdx.x + k * B;
+    if (tile >= nt) continue;
+    const size_t at = (size_t)tile * n + pkg;
+    for (int j = 0; j < W; ++j) {
+      const int last = (c.T - 1) - (((c.T - 1 - j) % W) + W) % W;
+      buf[j * plane + at] = ring_at(last, at);
+    }
+#pragma unroll
+    for (int j = 0; j < FS_MAX_POLES; ++j)
+      if (j < c.n_poles) th[j * plane + at] = th_r[k][j];
+    if (thr != nullptr) thr[at] = latch[k] ? 1.0f : 0.0f;
+    if (fb) pl.rl[at] = held[k];
+  }
+  if (threadIdx.x == 0) {
+    ev[pkg] = evc;
+    if (fb) {
+      pl.st[pkg] = stale;
+      pl.dg[pkg] = degp;
+    }
+  }
 }
 
 // Tiles per thread: the fewest of 1, 2, 4, 8 that keep a block's warps
@@ -560,59 +986,124 @@ int tiles_per_thread(int n_tiles) {
   return 0;
 }
 
-template <int TPT, bool MAIN>
+template <int TPT, bool MAIN, bool PLANES>
 cudaError_t launch(const FleetStepConsts& c, const float* rho,
                    const float* gamma, const float* buf0, const float* th0,
                    const float* stats0, const float* freq0, const float* ev0,
                    const float* thr0, float* temps, float* freqs, float* buf,
-                   float* th, float* ev, float* thr, cudaStream_t stream) {
+                   float* th, float* ev, float* thr, const Planes& pl,
+                   cudaStream_t stream) {
   const int nt = c.n_tiles;
   const int warps = (nt + TPT - 1) / TPT;
   const size_t pn = c.use_gamma ? (size_t)nt * 128 : 0;
   const size_t smem =
       sizeof(float) * (2 * pn + (c.use_gamma ? (size_t)warps * nt *
                                                    rec_words(TPT) : 0)) +
-      sizeof(int) * (32 + 192);
+      sizeof(int) * (32 + 256);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fleet_step_kernel<TPT, MAIN>,
+        fleet_step_kernel<TPT, MAIN, PLANES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (c.n + 31) / 32;
-  fleet_step_kernel<TPT, MAIN><<<blocks, 32 * warps, smem, stream>>>(
+  fleet_step_kernel<TPT, MAIN, PLANES><<<blocks, 32 * warps, smem, stream>>>(
       c, rho, gamma, buf0, th0, stats0, freq0, ev0, thr0, temps, freqs, buf,
-      th, ev, thr);
+      th, ev, thr, pl);
+  return cudaGetLastError();
+}
+
+template <int WT>
+cudaError_t launch_wide(const FleetStepConsts& c, const float* rho,
+                        const float* gamma, const int* g_cols,
+                        const float* g_vals, int g_len, const float* buf0,
+                        const float* th0, const float* stats0,
+                        const float* freq0, const float* ev0,
+                        const float* thr0, float* temps, float* freqs,
+                        float* buf, float* th, float* ev, float* thr,
+                        const Planes& pl, cudaStream_t stream) {
+  const int threads = ((c.n_tiles + WT - 1) / WT + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * 4 * (size_t)c.n_tiles + sizeof(int) * 8;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fleet_step_wide_kernel<WT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  fleet_step_wide_kernel<WT><<<c.n, threads, smem, stream>>>(
+      c, rho, gamma, g_cols, g_vals, g_len, buf0, th0, stats0, freq0, ev0,
+      thr0, temps, freqs, buf, th, ev, thr, pl);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The layout a launch takes: 1 for the packed layout, 2 for the wide one.
+// Wide past FS_PACKED_TILES tiles, and for a coupled fleet with a reactive
+// lane plane (fallback or pin): the packed layout's one-barrier schedule
+// forms a step's P_prev before that step's merged branch has settled the
+// frequency a reactive lane ends on.
+extern "C" int fleet_step_layout(int n_tiles, int use_gamma, int fallback,
+                                 int mixed) {
+  return (n_tiles > FS_PACKED_TILES || (use_gamma && (fallback || mixed)))
+             ? 2 : 1;
+}
+
 // Launches one window on `stream`; returns the cudaError_t of the launch
-// (0 on success).  thr0/thr may be null unless mode is reactive_poll.
+// (0 on success).  thr0/thr are null unless mode is reactive_poll or a
+// reactive plane is on; the plane pointers are null where the plane is
+// off; g_cols/g_vals/g_len are the compact Γ rows of the wide layout.
 extern "C" int fleet_step_launch(const FleetStepConsts* hc, const float* rho,
-                                 const float* gamma, const float* buf0,
-                                 const float* th0, const float* stats0,
-                                 const float* freq0, const float* ev0,
-                                 const float* thr0, float* temps, float* freqs,
-                                 float* buf, float* th, float* ev, float* thr,
-                                 void* stream) {
+                                 const float* gamma, const int* g_cols,
+                                 const float* g_vals, int g_len,
+                                 const float* buf0, const float* th0,
+                                 const float* stats0, const float* freq0,
+                                 const float* ev0, const float* thr0,
+                                 const float* het, const float* rl0,
+                                 const float* st0, const float* dg0,
+                                 const float* mode0, float* temps,
+                                 float* freqs, float* buf, float* th,
+                                 float* ev, float* thr, float* rl, float* st,
+                                 float* dg, float* rho_s, void* stream) {
   const FleetStepConsts c = *hc;
   if (c.n_tiles < 1 || c.n < 1 || c.window < 1 || c.recent < 0 ||
       c.recent > c.window || c.n_poles < 1 || c.n_poles > FS_MAX_POLES ||
-      c.poll_ticks < 1 || c.T < 1)
+      c.poll_ticks < 1 || c.T < 1 || c.step0 < 0 ||
+      (c.fallback && (c.stale_limit < 1 || c.recover < 1)))
     return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const bool main_path = c.use_gamma && c.mode == MODE_V24 && c.exp_kind == 3;
+  auto st_ = static_cast<cudaStream_t>(stream);
+  const Planes pl{het, rl0, st0, dg0, mode0, rl, st, dg, rho_s};
+  const bool planes = c.het || c.fallback || c.mixed;
+  if (fleet_step_layout(c.n_tiles, c.use_gamma, c.fallback, c.mixed) == 2) {
+    if (c.use_gamma && (g_cols == nullptr || g_vals == nullptr || g_len < 0))
+      return (int)cudaErrorInvalidValue;
+    const int wt = (c.n_tiles + FS_WIDE_THREADS - 1) / FS_WIDE_THREADS;
+#define FS_WIDE(K)                                                          \
+    if (wt <= K)                                                            \
+      return (int)launch_wide<K>(c, rho, gamma, g_cols, g_vals, g_len, buf0, \
+                                 th0, stats0, freq0, ev0, thr0, temps,      \
+                                 freqs, buf, th, ev, thr, pl, st_);
+    FS_WIDE(1) FS_WIDE(2) FS_WIDE(4)
+#undef FS_WIDE
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool main_path = c.use_gamma && c.mode == MODE_V24 &&
+                         c.exp_kind == 3 && !planes;
   switch (tiles_per_thread(c.n_tiles)) {
 #define FS_CASE(K)                                                          \
     case K:                                                                 \
       return (int)(main_path                                                \
-          ? launch<K, true>(c, rho, gamma, buf0, th0, stats0, freq0, ev0,   \
-                            thr0, temps, freqs, buf, th, ev, thr, st)       \
-          : launch<K, false>(c, rho, gamma, buf0, th0, stats0, freq0, ev0,  \
-                             thr0, temps, freqs, buf, th, ev, thr, st));
+          ? launch<K, true, false>(c, rho, gamma, buf0, th0, stats0, freq0, \
+                                   ev0, thr0, temps, freqs, buf, th, ev,    \
+                                   thr, pl, st_)                            \
+          : planes                                                          \
+          ? launch<K, false, true>(c, rho, gamma, buf0, th0, stats0, freq0, \
+                                   ev0, thr0, temps, freqs, buf, th, ev,    \
+                                   thr, pl, st_)                            \
+          : launch<K, false, false>(c, rho, gamma, buf0, th0, stats0,       \
+                                    freq0, ev0, thr0, temps, freqs, buf,    \
+                                    th, ev, thr, pl, st_));
     FS_CASE(1) FS_CASE(2) FS_CASE(4) FS_CASE(8)
 #undef FS_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -34,12 +34,23 @@ reference made.)  The scheduler defaults match the reference: one tile,
 ``step_ms=5``, v24, backend ``broadcast``.  ``--device`` defaults to
 ``cuda`` and the run fails without a card unless ``--device cpu`` is given.
 
-Not ported yet, each exits non-zero naming its ROADMAP step:
-``--montecarlo``, ``--serve``, ``--chaos`` and ``--distributed``; ``--node``
-other than ``base``; the unported model families (`transformer.
+``--montecarlo N`` runs the §10 process-variation population instead: N
+heterogeneous trials (per-trial Rth/τ/η/polling draws in the fleet state,
+drawn on the device from ``--seed``) paired baseline/V24 over
+``--mc-steps`` steps through ``--fleet-backend`` (on ``fused`` one
+`fleet_step` launch per 1,024-step survey block; the statistics skip a
+400-step burn-in, so a shorter run raises), printing the
+peak-temperature distributions, σ tightening, uplift and the §3.4
+guard-band margins derived from them.  ``--node`` gives every fleet lane
+that technology node's pole rows (`core.nodebank`; ``base`` keeps the
+homogeneous fleet).
+
+Not ported yet, each exits non-zero naming its ROADMAP step: ``--serve``
+and ``--chaos`` (both need the resident `FleetService`) and
+``--distributed``; the unported model families (`transformer.
 check_supported`).  ``--plant grid|rom`` streams through the per-step path
-of ``broadcast`` (``grid`` also on ``fused``, which hands it to that path;
-``rom`` on ``fused`` raises, ROADMAP queue 1 step 5).
+of ``broadcast``; on ``fused`` ``rom`` rides the kernel's het rows and
+``grid`` is handed to the per-step path.
 """
 from __future__ import annotations
 
@@ -61,11 +72,53 @@ from repro_torch.launch import steps as S
 from repro_torch.models import transformer as tf
 
 _NOT_PORTED = {
-    "montecarlo": ("--montecarlo (the §10 Monte-Carlo population)", 5),
     "serve": ("--serve (the resident control plane)", 8),
-    "chaos": ("--chaos (the fault-injection soak)", 5),
+    "chaos": ("--chaos (the fault-injection soak: its service phases need "
+              "the resident FleetService)", 8),
     "distributed": ("--distributed (multi-host streaming)", 9),
 }
+
+
+def _node_pkg(eng, node: str, n: int):
+    """Per-lane `PackageParams` rows for a non-base ``--node`` fleet (None
+    keeps the homogeneous fleet)."""
+    if node == "base":
+        return None
+    from repro_torch.core.nodebank import fleet_package_params
+    return fleet_package_params(eng.sched, [node] * n)
+
+
+def _montecarlo(args) -> dict:
+    """--montecarlo N: the §10 process-variation population through the
+    fleet; prints the §10 statistics and the §3.4 guard-band margins."""
+    from repro_torch.core import guardband, montecarlo
+    dev = resolve_device(args.device)
+    _sync(dev)
+    t0 = time.perf_counter()
+    r = montecarlo.run(seed=args.seed, n_trials=args.montecarlo,
+                       n_steps=args.mc_steps, backend=args.fleet_backend,
+                       filtration_impl=args.filtration, plant=args.plant,
+                       device=dev)
+    s = r.stats()
+    dt = time.perf_counter() - t0
+    print(f"[mc] {args.montecarlo} trials x {args.mc_steps} steps "
+          f"(paired baseline+v24) on '{args.fleet_backend}' "
+          f"plant '{args.plant}' in {dt:.1f} s "
+          f"({args.montecarlo / dt:.0f} trials/s)")
+    print(f"[mc] baseline peak-T {s['baseline_mean_c']:.1f}C "
+          f"sigma {s['baseline_std_c']:.2f}C, exceedance "
+          f"{s['baseline_time_above_frac'] * 100:.1f}%")
+    print(f"[mc] v24      peak-T {s['v24_mean_c']:.1f}C "
+          f"sigma {s['v24_std_c']:.2f}C, exceedance "
+          f"{s['v24_time_above_frac'] * 100:.2f}%")
+    print(f"[mc] sigma tightening {s['sigma_tighter_x']:.1f}x, uplift "
+          f"{s['uplift_mean'] * 100:.1f}% "
+          f"[p5 {s['uplift_p5'] * 100:.1f}%, p95 {s['uplift_p95'] * 100:.1f}%]")
+    for g in guardband.from_montecarlo(s):
+        print(f"[mc] guard-band {g.category}: {g.margin_before * 100:.0f}% "
+              f"-> {g.margin_after * 100:.1f}% (-{g.reduction_pct:.1f}%)")
+    return {"montecarlo": s, "trials_per_s": args.montecarlo / dt,
+            "result": r}
 
 
 def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
@@ -87,7 +140,7 @@ def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
               f"released {d['released_mtps']:.1f} MTPS "
               f"events {int(d['events_total'])}")
 
-    state = eng.init(n)
+    state = eng.init(n, pkg=_node_pkg(eng, args.node, n))
     print(f"[stream] backend {eng.backend_impl.describe()} on {eng.device} "
           f"({eng.backend_impl.n_devices()} device(s)), fleet {n}")
     t0 = time.perf_counter()
@@ -125,7 +178,7 @@ def _wave_loop(args, cfg, sched_cfg: SchedulerConfig, rho: float) -> dict:
 
     n_pkgs = max(args.fleet, 1)
     fleet = FleetEngine(sched_cfg, backend=args.fleet_backend, device=dev)
-    fst = fleet.init(n_pkgs)
+    fst = fleet.init(n_pkgs, pkg=_node_pkg(fleet, args.node, n_pkgs))
     if args.fleet > 1:
         print(f"[fleet] backend {fleet.backend_impl.describe()} "
               f"({fleet.backend_impl.n_devices()} device(s))")
@@ -212,32 +265,39 @@ def main(argv=None):
     ap.add_argument("--plant", default="pole", choices=available_plants(),
                     help="thermal-plant fidelity rung")
     ap.add_argument("--node", default="base",
-                    help="technology-node parameter bank (only 'base' is "
-                         "ported)")
+                    help="technology-node parameter bank "
+                         "(repro_torch.core.nodebank): every fleet lane gets "
+                         "that node's pole rows; non-base nodes run a "
+                         "heterogeneous fleet")
     ap.add_argument("--stream", action="store_true",
                     help="streaming control-plane soak (async ingest, 1 "
                          "host sync per gen-step flush)")
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--chaos", action="store_true")
-    ap.add_argument("--montecarlo", type=int, default=0)
+    ap.add_argument("--montecarlo", type=int, default=0,
+                    help="run the §10 Monte-Carlo population with N trials "
+                         "instead of serving")
+    ap.add_argument("--mc-steps", type=int, default=3_000,
+                    help="steps per Monte-Carlo trial, past the 400-step "
+                         "burn-in (>= 3000 reproduces the paper's §10 "
+                         "distributions)")
     args = ap.parse_args(argv)
 
     for flag, (what, step) in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"repro_torch.launch.serve: {what} is not "
                              f"ported yet: ROADMAP queue 1 step {step}")
-    if args.node != "base":
-        raise SystemExit(f"repro_torch.launch.serve: --node {args.node} "
-                         f"(heterogeneous node banks) is not ported yet: "
-                         f"ROADMAP queue 1 step 5")
+    if args.montecarlo:
+        return _montecarlo(args)
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     sched_cfg = SchedulerConfig(n_tiles=1, mode="v24", step_ms=5.0,
                                 filtration_impl=args.filtration,
-                                plant=args.plant)
+                                plant=args.plant,
+                                heterogeneous=args.node != "base")
     shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
                         "decode")
     rho = float(rho_v24(cfg, shape))

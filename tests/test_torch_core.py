@@ -229,9 +229,32 @@ def test_scheduler_update_matches_reference(mode, n_tiles, impl):
     (dict(mixed_mode=True), 5), (dict(plant="grid", heterogeneous=True), 5),
     (dict(plant="rom", heterogeneous=True), 5)])
 def test_unported_scheduler_features_raise(kw, step):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 step {step}"):
-        TSched(TCfg(**kw), device="cpu")
+    """The per-package planes that ROADMAP queue 1 step ``step`` ported:
+    each builds the reference's state leaves and steps ten steps to the
+    reference's numbers; heterogeneous draws on a grid-family plant are the
+    reference's ValueError."""
+    if kw.get("plant") in ("grid", "rom"):
+        with pytest.raises(ValueError, match="heterogeneous=True requires"):
+            JSched(JCfg(**kw))
+        with pytest.raises(ValueError, match="heterogeneous=True requires"):
+            TSched(TCfg(**kw), device="cpu")
+        return
+    from repro_torch.convert import state_from_numpy
+    cfg = dict(kw, n_tiles=3)
+    js, ts = JSched(JCfg(**cfg)), TSched(TCfg(**cfg), device="cpu")
+    jst = js.init((5,))
+    tst = ts.init((5,))
+    for f in ("pkg", "rho_last", "stale", "degraded", "ctrl_mode",
+              "throttled"):
+        assert (getattr(jst, f) is None) == (getattr(tst, f) is None), f
+    tst = state_from_numpy(jax.device_get(jst), device="cpu")
+    tr = trace(10, 5, 3, seed=step)
+    upd = jax.jit(js.update)
+    for t in range(10):
+        jst, jo = upd(jst, tr[t])
+        tst, to = ts.update(tst, torch.from_numpy(tr[t]))
+    np.testing.assert_allclose(np_(to.freq), np.asarray(jo.freq), **TOL)
+    assert_state_close(jax.device_get(jst), tst, str(kw))
 
 
 def test_scheduler_rejects_unknown_options():

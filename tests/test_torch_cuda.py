@@ -245,10 +245,147 @@ def test_cuda_fleet_step_dense_and_diagonal_gamma_rows(cuda, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
 def test_cuda_fleet_step_at_the_largest_tile_count(cuda, mode):
-    """The most tiles the wrapper accepts (tfs._MAX_TILES), where a thread
-    carries the most tiles."""
-    params, args, thr0 = _inputs(mode, tfs._MAX_TILES, 40, 36, cuda)
+    """The most tiles the packed layout takes (FS_PACKED_TILES = 128 in
+    csrc/fleet_step.cu), where a thread carries the most tiles."""
+    params, args, thr0 = _inputs(mode, 128, 40, 36, cuda)
+    assert tfs.layout(128, params) == "packed"
     _fleet_matches_plain(params, args, thr0)
+
+
+def _planes(params, args, device, *, het=0, fallback=False, mixed=False,
+            seed=2):
+    """(params, args, kwargs) with per-package planes added: het rows with
+    a tile axis of ``het`` around the fleet's own bank (τ × 0.7–1.4, gain
+    × 0.8–1.2), the fallback plane with NaN / ±inf spans in three packages'
+    ρ, the operator pins."""
+    import dataclasses
+
+    nt, n = args[4].shape
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: (lo + (hi - lo) * torch.rand(s, generator=g))
+    params = dataclasses.replace(params, fallback=fallback, mixed=mixed,
+                                 stale_limit=3, recover=4)
+    kw = {"step0": 7}
+    if params.mode == "reactive_poll" or fallback or mixed:
+        kw["thr0"] = (u(0, 1, nt, n) > 0.5).float().to(device)
+    if het:
+        decay = torch.tensor(params.decay)[:, None, None] ** (
+            1.0 / u(0.7, 1.4, 1, het, n))
+        gain = torch.tensor(params.gain)[:, None, None] * u(0.8, 1.2, 1, het,
+                                                            n)
+        kw["het"] = torch.cat([
+            decay, gain, (1 - decay[-1] ** params.ahead)[None],
+            gain.sum(0)[None],
+            torch.randint(1, 7, (1, het, n), generator=g).float()]).to(device)
+    if fallback:
+        rho = args[0].clone()
+        rho[5:12, :, 1] = float("nan")
+        rho[7, 0, 2] = float("inf")
+        rho[20:22, -1, 3] = -float("inf")
+        args = (rho,) + args[1:]
+        kw["fb0"] = (u(0.9, 2.7, nt, n).to(device),
+                     torch.randint(0, 5, (n,), generator=g).float().to(device),
+                     (u(0, 1, n) < 0.3).float().to(device))
+    if mixed:
+        kw["mode0"] = (u(0, 1, n) < 0.5).float().to(device)
+    return params, args, kw
+
+
+def _planes_match_plain(params, args, kw):
+    before = tfs.fleet_step.launches
+    out = tfs.fleet_step(*args, params, **kw)
+    assert tfs.fleet_step.launches == before + 1
+    ref = tfs.fleet_step_reference(*args, params, **kw)
+    for name, a, b in zip(("temps", "freqs", "buf", "th"), out[:4], ref[:4]):
+        assert bool(torch.isfinite(a).all()), name
+        np.testing.assert_allclose(np_(a), np_(b), err_msg=name, **TOL)
+    for a, b in zip(out[4:6], ref[4:6]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    if ref[6] is not None:
+        for a, b in zip(out[6], ref[6]):
+            assert torch.equal(a, b)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("nt,het", [(1, 1), (8, 8), (8, 1), (47, 47),
+                                    (47, 1)])
+def test_cuda_fleet_step_het_rows_match_plain_version(cuda, mode, nt, het):
+    """Per-tile and per-package het rows in the packed layout."""
+    params, args, _ = _inputs(mode, nt, 70, 40, cuda)
+    _planes_match_plain(*_planes(params, args, cuda, het=het))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["fb0", "mode0", "both"])
+@pytest.mark.parametrize("coupled", [False, True])
+@pytest.mark.parametrize("nt", [1, 8, 47])
+def test_cuda_fleet_step_reactive_planes_match_plain_version(cuda, planes,
+                                                             coupled, nt):
+    """The fallback plane (NaN / ±inf words held), the pins, and both with
+    het rows; uncoupled fleets take the packed layout, coupled ones the
+    wide layout."""
+    params, args, _ = _inputs("v24", nt, 40, 40, cuda,
+                              use_coupling=coupled)
+    fb, mixed = planes in ("fb0", "both"), planes in ("mode0", "both")
+    params, args, kw = _planes(params, args, cuda, fallback=fb, mixed=mixed,
+                               het=nt if planes == "both" else 0)
+    assert tfs.layout(nt, params) == ("wide" if coupled and nt > 1
+                                      else "packed")
+    _planes_match_plain(params, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("nt", [129, 200, 512])
+def test_cuda_fleet_step_wide_layout_matches_plain_version(cuda, mode, nt):
+    """Past the packed layout's 128 tiles: one block per package."""
+    params, args, thr0 = _inputs(mode, nt, 12, 36, cuda)
+    assert tfs.layout(nt, params) == "wide"
+    _fleet_matches_plain(params, args, thr0)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_step_wide_layout_follows_each_gamma(cuda):
+    """Different Γ of one shape, one after the other through the wide
+    layout (each freed before the next is made, so the allocator may hand
+    out the same block): every launch walks its own Γ's rows, whether the
+    wrapper builds them or the caller passes `compact_rows`."""
+    params, args, thr0 = _inputs("v24", 200, 24, 40, cuda)
+    assert tfs.layout(200, params) == "wide"
+    for seed in range(3):
+        g = torch.Generator().manual_seed(seed)
+        mask = torch.rand((200, 200), generator=g) < 0.03 * (seed + 1)
+        gamma = row_normalise(torch.where(
+            mask | torch.eye(200, dtype=torch.bool),
+            torch.rand((200, 200), generator=g), 0.0)).to(cuda).contiguous()
+        a = args[:6] + (gamma,)
+        out, ref = _fleet_matches_plain(params, a, thr0)
+        given = tfs.fleet_step(*a, params, thr0=thr0, step0=3,
+                               rows=tfs.compact_rows(gamma))
+        for x, y in zip(given[:5], out[:5]):
+            assert torch.equal(x, y)
+        del gamma, a, out, ref, given
+
+
+@pytest.mark.cuda
+def test_cuda_montecarlo_fused_matches_broadcast_and_oracle(cuda):
+    """A 256-trial population: 2 surveys × 2 blocks = 4 launches on fused,
+    per trial within 1e-5 of broadcast and `run_reference`."""
+    from repro_torch.core import montecarlo
+
+    draws = montecarlo.sample_trials(3, 256, 1200, device=cuda)
+    before = tfs.fleet_step.launches
+    rf = montecarlo.run(backend="fused", draws=draws, device=cuda)
+    assert tfs.fleet_step.launches == before + 4
+    rb = montecarlo.run(backend="broadcast", draws=draws, device=cuda)
+    rr = montecarlo.run_reference(draws=draws, device=cuda)
+    for other in (rb, rr):
+        for f in rf._fields:
+            np.testing.assert_allclose(np_(getattr(rf, f)),
+                                       np_(getattr(other, f)), err_msg=f,
+                                       **TOL)
 
 
 @pytest.mark.cuda

@@ -190,8 +190,10 @@ def test_engine_guards():
     bad[2, 1, 0] = np.nan
     with pytest.raises(ValueError, match="debug_nan"):
         e.run_block(s, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 5"):
-        e.run_survey(s, trace(4, 4, 4))
+    with pytest.raises(ValueError, match="burn_in"):
+        e.run_survey(s, trace(4, 4, 4), burn_in=4)
+    with pytest.raises(ValueError, match="empty density trace"):
+        e.run_survey(s, np.zeros((0, 4, 4), np.float32))
     with pytest.raises(ValueError, match="unknown fleet backend"):
         TEngine(TCfg(), backend="vmap", device="cpu")
 
@@ -239,14 +241,31 @@ def test_serve_stream_runs_on_cpu_and_backends_agree():
 
 
 @pytest.mark.parametrize("flags,step", [
-    (["--montecarlo", "4"], 5), (["--serve"], 8), (["--chaos"], 5),
-    (["--stream", "--distributed"], 9), (["--arch", "rwkv6-1.6b"], 10),
-    (["--stream", "--node", "n3"], 5)])
+    (["--serve"], 8), (["--chaos"], 8),
+    (["--stream", "--distributed"], 9), (["--arch", "rwkv6-1.6b"], 10)])
 def test_serve_unported_paths_exit_nonzero(flags, step):
     with pytest.raises(SystemExit) as exc:
         serve.main(flags + ["--device", "cpu"])
     assert exc.value.code not in (0, None)
     assert f"ROADMAP queue 1 step {step}" in str(exc.value.code)
+    if "--chaos" in flags:
+        assert "FleetService" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--montecarlo", "4", "--mc-steps", "500"],
+    ["--stream", "--node", "n3", "--fleet", "4", "--waves", "1",
+     "--gen", "8"]])
+def test_serve_ported_paths_run(flags):
+    """The two paths ROADMAP queue 1 step 5 ported: the Monte-Carlo
+    population and a node-bank fleet."""
+    res = serve.main(flags + ["--device", "cpu"])
+    if "--montecarlo" in flags:
+        assert res["result"].peak_t_v24.shape == (4,)
+        assert all(np.isfinite(v) for v in res["montecarlo"].values())
+    else:
+        assert res["flushes"] == 1
+        assert all(np.isfinite(v) for v in res["stream"][0].values())
 
 
 # The coupled v24 law's knife edge (ROADMAP queue 3).  Where budget − neigh

@@ -117,9 +117,60 @@ def test_fleet_step_wrapper_validates_inputs():
 @pytest.mark.parametrize("kw", [dict(het=True), dict(fb0=True),
                                 dict(mode0=True)])
 def test_fleet_step_unported_planes_raise(kw):
+    """Each per-package plane (ported by ROADMAP queue 1 step 5) goes
+    through the wrapper's contract: a plane of the wrong kind or shape
+    raises, the right one runs the plain version on CPU tensors."""
+    (name, _), = kw.items()
     _, tparams, inputs, _ = _case("v24", 4, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 5"):
-        tfs.fleet_step(*_torch_inputs(inputs).values(), tparams, **kw)
+    t = _torch_inputs(inputs)
+    rows = 2 * tparams.n_poles + 3
+    planes = {"het": torch.ones(rows, 1, 8),
+              "fb0": (torch.ones(4, 8), torch.zeros(8), torch.zeros(8)),
+              "mode0": torch.ones(8)}
+    params = {"het": tparams,
+              "fb0": dataclasses.replace(tparams, fallback=True),
+              "mode0": dataclasses.replace(tparams, mixed=True)}[name]
+    extra = {} if name == "het" else {"thr0": torch.zeros(4, 8)}
+    if name == "het":            # a row short
+        with pytest.raises(ValueError, match="het must be"):
+            tfs.fleet_step(*t.values(), params, het=planes["het"][1:])
+    else:                        # the plane without its params flag
+        with pytest.raises(ValueError, match="goes with"):
+            tfs.fleet_step(*t.values(), tparams, **{name: planes[name]},
+                           **extra)
+    out = tfs.fleet_step(*t.values(), params, **{name: planes[name]},
+                         **extra)
+    ref = tfs.fleet_step_reference(*t.values(), params,
+                                   **{name: planes[name]}, **extra)
+    for a, b in zip(out[:5], ref[:5]):
+        assert torch.equal(a, b)
+    assert (out[6] is None) == (name != "fb0")
+
+
+@pytest.mark.parametrize("nt,seed", [(5, 0), (47, 1), (200, 2)])
+def test_compact_rows_rebuild_gamma(nt, seed):
+    """`compact_rows` lists each row's non-zeros in ascending column order
+    (a NaN entry counts as one), zero-padded to the longest row: scattered
+    back they give Γ, and a second Γ of the same shape gives its own."""
+    rng = np.random.default_rng(seed)
+    g = np.where(rng.random((nt, nt)) < 0.2, rng.random((nt, nt)), 0.0)
+    g[np.arange(nt), np.arange(nt)] = 0.5
+    g[nt // 2, 0] = np.nan
+    for gamma in (torch.tensor(g, dtype=torch.float32),
+                  torch.tensor(g.T.copy(), dtype=torch.float32)):
+        cols, vals = tfs.compact_rows(gamma)
+        nnz = (gamma != 0).sum(dim=1)
+        assert cols.dtype == torch.int32 and cols.shape == vals.shape
+        assert cols.shape == (int(nnz.max()), nt)
+        back = torch.zeros_like(gamma)
+        for r in range(nt):
+            k = int(nnz[r])
+            c = cols[:k, r].long()
+            assert torch.all(c[1:] > c[:-1])
+            assert not bool(vals[k:, r].any()) and not bool(cols[k:, r].any())
+            back[r, c] = vals[:k, r]
+        assert torch.equal(back.isnan(), gamma.isnan())
+        assert torch.equal(torch.nan_to_num(back), torch.nan_to_num(gamma))
 
 
 def test_consts_struct_mirrors_cuda_source():

@@ -56,7 +56,9 @@ def test_port_has_every_module_of_the_slice():
                 "core/telemetry.py", "kernels/flash_attention.py",
                 "kernels/ssm_scan.py", "kernels/ref.py", "models/layers.py",
                 "models/attention.py", "models/ssm.py",
-                "models/transformer.py", "launch/steps.py"):
+                "models/transformer.py", "launch/steps.py",
+                "core/montecarlo.py", "core/guardband.py",
+                "core/nodebank.py", "fleet/faults.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
                 "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu"):

@@ -31,6 +31,7 @@ from repro_torch.core.scheduler import SchedulerConfig as TCfg
 from repro_torch.core.scheduler import ThermalScheduler as TSched
 from repro_torch.fleet import FleetEngine as TEngine
 from repro_torch.kernels import ops
+from repro_torch.kernels.fleet_step import fleet_step
 from repro_torch.launch import serve
 
 jax.config.update("jax_platform_name", "cpu")
@@ -135,11 +136,13 @@ def test_grid_multi_exponential():
     assert np.abs(fit - y)[t1:].max() / yinf > 5e-3
 
 
-# grid on fused hands the fleet to the per-step path; rom runs on broadcast
+# grid on fused hands the fleet to the per-step path; rom on fused rides
+# the kernel's het rows
 @pytest.mark.parametrize("plant,backend,mode", [
     ("grid", "broadcast", "v24"), ("grid", "fused", "v24"),
     ("grid", "broadcast", "reactive_poll"), ("rom", "broadcast", "v24"),
-    ("rom", "broadcast", "reactive")])
+    ("rom", "broadcast", "reactive"), ("rom", "fused", "v24"),
+    ("rom", "fused", "reactive_poll")])
 def test_plant_fleets_match_reference(plant, backend, mode):
     n, nt, steps = 8, 3, 40
     tr = trace(steps, n, nt, seed=11)
@@ -147,8 +150,8 @@ def test_plant_fleets_match_reference(plant, backend, mode):
                  backend="broadcast")
     te = TEngine(TCfg(n_tiles=nt, plant=plant, mode=mode), backend=backend,
                  device="cpu")
-    if backend == "fused":                   # handed to the per-step path
-        assert te.backend_impl.run_block is None
+    if backend == "fused":                   # per-step path for grid only
+        assert (te.backend_impl.run_block is None) == (plant == "grid")
     js, jtel = je.run_chunked(je.init(n), jnp.asarray(tr), flush_every=16)
     ts, ttel = te.run_chunked(te.init(n), tr, flush_every=16)
     assert_state_close(jax.device_get(js), ts, f"{plant}/{backend}")
@@ -156,8 +159,28 @@ def test_plant_fleets_match_reference(plant, backend, mode):
 
 
 def test_rom_on_fused_raises_naming_the_roadmap_step():
-    with pytest.raises(NotImplementedError, match="queue 1 step 5"):
-        TEngine(TCfg(n_tiles=2, plant="rom"), backend="fused", device="cpu")
+    """ROADMAP queue 1 step 5 ported the ROM's per-tile rows into the
+    kernel: a fitted-ROM fleet on ``fused`` runs `fleet_step` with its bank
+    as het rows, and matches the per-step ``broadcast`` fleet."""
+    cfg = TCfg(n_tiles=2, plant="rom")
+    tf = TEngine(cfg, backend="fused", device="cpu")
+    tb = TEngine(cfg, backend="broadcast", device="cpu")
+    assert tf.backend_impl.run_block is not None
+    tr = trace(40, 5, 2, seed=3)
+    sf, telf = tf.run_chunked(tf.init(5), tr, flush_every=16)
+    sb, telb = tb.run_chunked(tb.init(5), tr, flush_every=16)
+    np.testing.assert_allclose(np_(sf.thermal), np_(sb.thermal), **TOL)
+    np.testing.assert_allclose(np_(sf.freq), np_(sb.freq), **TOL)
+    assert torch.equal(sf.events, sb.events)
+    assert_telemetry_close(telb, telf, "rom fused")
+    # the bank's per-tile gains live in its het rows alone: the kernel
+    # refuses the ROM's constants without them
+    impl = tf.backend_impl
+    assert impl.params.gain is None and impl.params.gain_sum is None
+    args, kw = impl.kernel_inputs(tf.init(5), impl.put_trace(tr[:8]))
+    assert kw["het"] is not None
+    with pytest.raises(ValueError, match="het rows"):
+        fleet_step(*args, **dict(kw, het=None))
 
 
 def test_registry_validation_and_instability():
@@ -190,9 +213,10 @@ def test_serve_stream_runs_each_plant(plant):
     res = serve.main(args + ["--fleet-backend", "broadcast"])
     assert res["flushes"] == res["host_syncs"] == 2
     assert all(np.isfinite(v) for d in res["stream"] for v in d.values())
-    if plant == "grid":
-        fused = serve.main(args + ["--fleet-backend", "fused"])
+    fused = serve.main(args + ["--fleet-backend", "fused"])
+    if plant == "grid":          # handed to the per-step path: identical
         assert fused["stream"] == res["stream"]
-    else:
-        with pytest.raises(NotImplementedError, match="queue 1 step 5"):
-            serve.main(args + ["--fleet-backend", "fused"])
+    else:                        # the kernel's plain version
+        for a, b in zip(fused["stream"], res["stream"]):
+            for k in a:
+                assert a[k] == pytest.approx(b[k], rel=1e-5, abs=1e-5), k
