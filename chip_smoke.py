@@ -28,14 +28,20 @@ Phase C  `repro_torch.launch.serve --stream --fleet 4096 --fleet-backend fused
          kernel held against the plain version on serve's first window
          [256, 1 tile, 4,096], timed beside its bound and PR 14's time.
 Phase D  the `thermal_conv` CUDA kernel against its plain version
-         (`thermal_conv_reference`): 8 tiles × 4,000 steps with the 8-tile
-         Γ of examples/multi_tile_sim.py, 47 tiles with the Ponte-Vecchio Γ,
-         ragged 100 tiles × 777, 512 × 1,000 (bench_multitile's shape), and
-         two chained halves against one run.  Then its main path at full
-         width: `kernels.ops.thermal_conv` over 512 tiles × 90,000 steps
-         (the paper's dataset length at the kernel's datacenter width),
-         power 80 + 40·U(0,1) W — held against the plain version, timed
-         beside its bound and the plain version.
+         (`thermal_conv_reference`), bit for bit and one launch per call:
+         8 tiles × 4,000 steps with the 8-tile Γ of
+         examples/multi_tile_sim.py, 47 tiles with the Ponte-Vecchio Γ,
+         ragged 100 tiles × 777, 512 × 1,000 (bench_multitile's shape), a
+         dense random Γ at 100 and 2,048 tiles, NaN / ±inf spans in the
+         power at 47 and 512 tiles (NaN and inf where the plain version has
+         them), and two chained halves against one run.  Then its main path
+         at full width: `kernels.ops.thermal_conv` over 512 tiles × 90,000
+         steps (the paper's dataset length at the kernel's datacenter
+         width), power 80 + 40·U(0,1) W — exactly one launch, bit-equal to
+         the plain version, timed beside its time before the redesign
+         (THERMAL_PREV_MS), its bound, its dependence-floor estimate, the
+         plain version and Γ·P alone in torch.matmul; and the same length
+         at the 47-tile Ponte-Vecchio grid, timed.
 Phase E  the `grid_conv` CUDA kernel against its plain version
          (`grid_conv_reference`, the reference's adjacency operands) at 1, 2
          and 47 tiles × grid_substeps 1, 2 × grid_contrast 0, 0.5, and at
@@ -161,6 +167,9 @@ SSD_FIRST_MS = 3.180
 # fleet_step per [256, 47, 4,096] peak window, grid_conv per [90,000, 47]
 FLEET_PREV_MS = 3.430
 GRID_PREV_MS = 19.386
+# thermal_conv before its redesign (the dense-product kernel), per
+# [90,000, 512] trace (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table)
+THERMAL_PREV_MS = 9.962
 # PR 14's fleet_step at the other windows timed here — Phase A's by (mode,
 # tiles, packages) at T = 512, and serve --stream's first window — the mean
 # of its two times in scripts/kernel_ab.py against PR 14's source, one call
@@ -891,6 +900,17 @@ def timed(fn) -> tuple[object, float]:
     return out[0], ms
 
 
+def bit_equal(out, ref) -> bool:
+    """Every output equal to the plain version's bit for bit, NaN for NaN
+    (±inf and NaN at the same places)."""
+    import torch
+
+    return all(torch.equal(torch.isnan(a), torch.isnan(b))
+               and torch.equal(torch.nan_to_num(a, nan=0.0),
+                               torch.nan_to_num(b, nan=0.0))
+               for a, b in zip(out, ref))
+
+
 def phase_d(dev) -> dict:
     """`thermal_conv`: kernel vs plain version, then the full-width path."""
     import torch
@@ -900,11 +920,13 @@ def phase_d(dev) -> dict:
                                            row_normalise)
     from repro_torch.core.thermal import two_pole
     from repro_torch.kernels import ops
-    from repro_torch.kernels.thermal_conv import (thermal_conv_cost,
+    from repro_torch.kernels.thermal_conv import (conv_tiles_per_block,
+                                                  thermal_conv_cost,
                                                   thermal_conv_reference)
 
     poles = two_pole()
     gen = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def power(t, n):              # bench_multitile's load: 80 + 40·U(0,1) W
         return 80.0 + 40.0 * torch.rand((t, n), generator=gen, device=dev)
@@ -912,8 +934,32 @@ def phase_d(dev) -> dict:
     def gamma(g):
         return row_normalise(g).to(dev).contiguous()
 
+    def dense(n):                 # a dense random Γ: the union is every column
+        g = torch.rand((n, n), generator=gen, device=dev)
+        return (g / g.sum(1, keepdim=True)).contiguous()
+
     conv = lambda p, g, s0=None: ops.thermal_conv(p, g, poles.decay,
                                                   poles.gain, s0)
+
+    def tiles(n):                 # the kernel's tiles a block at n tiles
+        tb = conv_tiles_per_block(n, sms)
+        return f"{tb} tile" + ("s" if tb > 1 else "")
+
+    def held(where, p, g, s0=None, finite=True):
+        """One launch, bit-equal to the plain version; within 1e-5 of it
+        (max_err, which refuses non-finite outputs) where ``finite``."""
+        before = ops.thermal_conv.launches
+        out = conv(p, g, s0)
+        torch.cuda.synchronize()
+        check(ops.thermal_conv.launches == before + 1,
+              f"phase D {where}: {ops.thermal_conv.launches - before} "
+              f"launches, want 1")
+        ref = thermal_conv_reference(p, g, poles.decay, poles.gain, s0)
+        e = max_err(out, ref, f"phase D {where}") if finite else 0.0
+        check(bit_equal(out, ref), f"phase D {where}: not bit-equal to the "
+              f"plain version")
+        return out, e
+
     err = 0.0
     for where, t, g in (
             ("8 tiles x 4,000 (multi_tile_sim Γ)", 4000,
@@ -922,25 +968,40 @@ def phase_d(dev) -> dict:
              gamma(ponte_vecchio_gamma())),
             ("ragged 100 tiles x 777", 777, gamma(coupling_matrix(100))),
             ("512 tiles x 1,000 (bench_multitile)", 1000,
-             gamma(coupling_matrix(512)))):
-        p = power(t, g.shape[0])
-        out = conv(p, g)
-        torch.cuda.synchronize()
-        ref = thermal_conv_reference(p, g, poles.decay, poles.gain)
-        e = max_err(out, ref, f"phase D {where}")
+             gamma(coupling_matrix(512))),
+            ("dense random Γ, 100 tiles x 1,000", 1000, dense(100)),
+            ("dense random Γ, 2,048 tiles x 100", 100, dense(2048))):
+        _, e = held(where, power(t, g.shape[0]), g)
         err = max(err, e)
-        print(f"[phaseD] {where}: max_abs_err vs plain {e:.3e}, bit-exact "
-              f"{all(torch.equal(a, b) for a, b in zip(out, ref))}")
+        print(f"[phaseD] {where} ({tiles(g.shape[0])} a block): "
+              f"max_abs_err vs plain {e:.3e}, bit-exact True, 1 launch")
+    # non-finite power: NaN and ±inf where the plain version's dense
+    # product has them, in rows whose Γ is zero at the column too
+    for where, g in (("47 tiles (Ponte-Vecchio Γ)", gamma(ponte_vecchio_gamma())),
+                     ("512 tiles", gamma(coupling_matrix(512)))):
+        n = g.shape[0]
+        p = power(2000, n)
+        p[300:340, n // 3] = float("nan")
+        p[900, 5] = float("inf")
+        p[901, n - 2] = -float("inf")
+        p[1500:1502, 0] = float("inf")
+        out, _ = held(f"non-finite power, {where}", p, g, finite=False)
+        print(f"[phaseD] non-finite power (NaN / +inf / -inf spans), "
+              f"{where} x 2,000: bit-equal to the plain version NaN for NaN; "
+              f"{int(torch.isnan(out[0]).sum())} NaN and "
+              f"{int(torch.isinf(out[0]).sum())} inf of {out[0].numel()} ΔT")
     g47 = gamma(ponte_vecchio_gamma())
     p = power(2000, 47)
     full = conv(p, g47)
     first = conv(p[:977].contiguous(), g47)
     second = conv(p[977:].contiguous(), g47, first[1])
-    e = max_err((torch.cat([first[0], second[0]]), second[1]), full,
-                "phase D chained halves")
+    chained = (torch.cat([first[0], second[0]]), second[1])
+    e = max_err(chained, full, "phase D chained halves")
+    check(bit_equal(chained, full), "phase D chained halves: not bit-equal "
+          "to one run")
     err = max(err, e)
     print(f"[phaseD] two chained halves (977 + 1,023 steps) vs one run: "
-          f"max_abs_err {e:.3e}")
+          f"bit-exact True")
 
     # the main path at full width, through the public entry point
     n, t = THERMAL_FULL
@@ -950,30 +1011,60 @@ def phase_d(dev) -> dict:
     dts, state = conv(p, g)
     torch.cuda.synchronize()
     launches = ops.thermal_conv.launches
-    check(launches >= 1, "the thermal_conv main path launched no kernel")
+    check(launches == 1, f"the thermal_conv main path launched the kernel "
+          f"{launches} times, want 1")
     check(tuple(dts.shape) == (t, n) and bool(torch.isfinite(dts).all()),
           f"thermal_conv main path: dts {tuple(dts.shape)} not finite")
     ref, plain_ms = timed(lambda: thermal_conv_reference(
         p, g, poles.decay, poles.gain))
     e = max_err((dts, state), ref, "phase D main path")
+    check(bit_equal((dts, state), ref), "phase D main path: not bit-equal "
+          "to the plain version")
     err = max(err, e)
     kernel_ms = event_ms(lambda: conv(p, g), 10)
     matmul_ms = event_ms(lambda: torch.matmul(p, g.T), 10)
     cost = thermal_conv_cost(p, g, 2)
     bound_ms, bound_by = bound(cost["bytes"], cost["ops_nnz"])
     dense_ms, dense_by = bound(cost["bytes"], cost["ops_dense"])
-    print(f"[phaseD] thermal_conv [{t}, {n}] main path (ops.thermal_conv): "
-          f"{launches} launch(es), max_abs_err vs plain {e:.3e}, bit-exact "
-          f"{all(torch.equal(a, b) for a, b in zip((dts, state), ref))}; "
-          f"kernel {kernel_ms:.3f} ms (median of 10, CUDA events), plain "
-          f"{plain_ms:.1f} ms (one run); bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({cost['bytes'] / 1e6:.1f} MB, "
-          f"{cost['ops_nnz'] / 1e9:.3f} GFLOP counting Γ's "
-          f"{int((g != 0).sum())} non-zeros; dense "
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    clock_mhz = float(smi.stdout.split()[0])
+    # the pole chain: one dependent f32 multiply and one add a step
+    floor_ms = t * 2 * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+    print(f"[phaseD] thermal_conv [{t}, {n}] main path (ops.thermal_conv, "
+          f"{tiles(n)} a block): {launches} "
+          f"launch, max_abs_err vs plain {e:.3e}, bit-exact True; kernel "
+          f"{kernel_ms:.4f} ms (median of 10, CUDA events; {THERMAL_PREV_MS} "
+          f"ms before its redesign, "
+          f"{kernel_ms * clock_mhz * 1e3 / t:.1f} cycles per step at "
+          f"{clock_mhz:.0f} MHz), plain {plain_ms:.1f} ms (one run); "
+          f"roofline bound {bound_ms:.4f} ms by {bound_by} "
+          f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops_nnz'] / 1e9:.3f} GFLOP "
+          f"counting Γ's {int((g != 0).sum())} non-zeros; dense "
           f"{cost['ops_dense'] / 1e9:.3f} GFLOP, {dense_ms:.4f} ms by "
-          f"{dense_by}); for information, torch.matmul of Γ·P alone "
-          f"{matmul_ms:.3f} ms (allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32})")
+          f"{dense_by}); dependence floor, an estimate from assumed "
+          f"latencies (not measured): {floor_ms:.3f} ms ({t} steps x "
+          f"{2 * FP32_LATENCY_CYCLES} cycles at {clock_mhz:.0f} MHz); for "
+          f"information, torch.matmul of Γ·P alone {matmul_ms:.3f} ms "
+          f"(allow_tf32={torch.backends.cuda.matmul.allow_tf32}); "
+          f"thermal_conv.cu (nvcc -Xptxas -v, the main path's kernel): "
+          f"{registers('thermal_conv', 'ILi2ELi4E')}")
+    # the same length at the 47-tile Ponte-Vecchio grid (1 tile a block)
+    p47 = power(t, 47)
+    out47 = conv(p47, g47)
+    check(bit_equal(out47, thermal_conv_reference(p47, g47, poles.decay,
+                                                  poles.gain)),
+          "phase D [90,000, 47]: not bit-equal to the plain version")
+    ms47 = event_ms(lambda: conv(p47, g47), 10)
+    b47, by47 = bound(*(lambda c: (c["bytes"], c["ops_nnz"]))(
+        thermal_conv_cost(p47, g47, 2)))
+    print(f"[phaseD] thermal_conv [{t}, 47] (Ponte-Vecchio Γ, "
+          f"{tiles(47)} a block): kernel "
+          f"{ms47:.4f} ms (median of 10, CUDA events), bit-exact True; "
+          f"roofline bound {b47:.4f} ms by {by47}; dependence-floor "
+          f"estimate {floor_ms:.3f} ms")
     return {"name": "thermal_conv", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/thermal_conv.cu",
             "replaces": "src/repro/kernels/thermal_conv.py:208",

@@ -36,7 +36,7 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def fma_f32(a, b: torch.Tensor, c) -> torch.Tensor:
+def fma_f32(a, b: torch.Tensor, c, *, exact: bool = False) -> torch.Tensor:
     """a·b + c rounded ONCE to f32: a fused multiply-add.
 
     The reference's fleet loop runs as a compiled XLA program, which
@@ -45,14 +45,35 @@ def fma_f32(a, b: torch.Tensor, c) -> torch.Tensor:
     β = −1,256.6), the filtration's centered moment ``csum`` (terms ~10²,
     value near 0) and the v24 budget t_allow − (1 − η)·ΔT near the thermal
     limit — so there that single rounding shows at 1e-5, and every port
-    version computes exactly those multiply-adds as FMAs (the CUDA kernel
+    version computes exactly those multiply-adds as FMAs (the CUDA kernels
     with fmaf).  The Γ products accumulate with it too (`apply_coupling`).
-    ``a`` (a constant or tensor), ``b`` and ``c`` are f32: a·b is exact in
-    f64 and so is the sum for these operands, so one cast to f32 gives the
-    FMA's result on any device.
+    ``a`` (a constant or tensor), ``b`` and ``c`` are f32, so a·b is exact
+    in f64.  Its sum with c, rounded to f64 and then to f32, is rounded
+    twice, which differs from one rounding only where the f64 sum lands
+    exactly halfway between two f32 values while the exact sum lies off it
+    (a small a·b beside a large c: a dense Γ's terms meet it about once in
+    10⁸ products).  There the sum moves one f64 step toward the exact value
+    (its TwoSum error) before the cast, so the result is the FMA's for
+    results in f32's normal range.  On the CPU that correction runs where
+    such a sum occurred (finding out is free there).  On a card finding
+    out would be a host sync, so the correction runs on every element, and
+    only with ``exact=True`` — as the plain versions that a kernel is held
+    to bit for bit ask for it; the per-step engines, bound by launches,
+    keep the two roundings.
     """
+    x = a * b.double()
     c = c.double() if torch.is_tensor(c) else c
-    return (a * b.double() + c).float()
+    s = x + c
+    if x.device.type != "cpu" and not exact:
+        return s.float()
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if x.device.type == "cpu" and not bool(mid.any()):
+        return s.float()
+    t = s - x
+    err = (x - (s - t)) + (c - t)
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    return torch.where(mid & (err != 0), torch.nextafter(s, toward),
+                       s).float()
 
 
 def pow_f32(x: torch.Tensor, y: float) -> torch.Tensor:

@@ -28,7 +28,6 @@ import torch
 
 from repro_torch.core import thermal
 from repro_torch.core.fingerprint import FINGERPRINT, Fingerprint
-from repro_torch.kernels.thermal_conv import grid_conv, grid_operators
 
 # ROM-vs-grid agreement: peak-ΔT relative tolerance over the 90k-step trace
 # (the reference's `repro.core.plant.ROM_PEAK_TOL`)
@@ -179,6 +178,10 @@ class GridPlant(ThermalPlant):
         if n_b:
             col[gx - n_b:] = 1.0 - cfg.grid_contrast
             col *= gx / col.sum()
+        # imported here: kernels.thermal_conv imports core.coupling, which
+        # enters core (and this module) first
+        from repro_torch.kernels.thermal_conv import grid_operators
+
         ops = grid_operators(gy, gx, nt, self.rth)
         self.inject, self.readout = ops["inject"], ops["readout"]
         self.set_operators(
@@ -249,6 +252,8 @@ class GridPlant(ThermalPlant):
         """Whole-trace [T, n_tiles] run through the `grid_conv` kernel (its
         plain version on the CPU).  Returns (dts [T, n_tiles], final state
         [gy, W])."""
+        from repro_torch.kernels.thermal_conv import grid_conv
+
         power = torch.as_tensor(power_trace, dtype=torch.float32,
                                 device=self.device).contiguous()
         if state0 is None:

@@ -13,10 +13,6 @@ its plain PyTorch version for CPU tensors: the tensors' device decides,
 nothing else (there is no environment switch).  A failed build or launch
 raises; it never falls back to the plain version.
 """
-# core first: its plant module imports kernels.thermal_conv, which in turn
-# imports core.coupling, so entering the cycle from here would find
-# kernels.thermal_conv half initialised
-import repro_torch.core  # noqa: F401
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssm_scan import ssd

@@ -8,8 +8,9 @@ body `_kernel`) and `repro.kernels.thermal_conv.grid_conv` (body
   * `thermal_conv` — ΔT of a Γ-coupled n-pole bank over a [T, N] power
     stream: p_eff = Γ·P, then per tile and pole
     ``state' = a·state + (1 − a)·G·p_eff`` and ΔT = Σ_poles state.  On CUDA
-    tensors one launch of ``csrc/thermal_conv.cu``; on CPU tensors
-    `thermal_conv_reference`.
+    tensors one launch of ``csrc/thermal_conv.cu`` (a sparse Γ walk beside
+    a warp that runs the pole recurrence, `conv_tiles_per_block` tiles a
+    block); on CPU tensors `thermal_conv_reference`.
   * `grid_conv` — the `GridPlant` trace: per step drive = Rth·P fanned out
     over each tile's gy×gx patch, ``substeps`` explicit-Euler 5-point
     stencil updates, readout as patch means.  On CUDA tensors one launch of
@@ -21,7 +22,9 @@ failed build or launch; neither falls back to its plain version on a card.
 
 Rounding is pinned so each kernel can equal its plain version bit for bit:
 Γ·P accumulates source tile by source tile, j = 0 … N−1, one f32 FMA each
-(`repro_torch.core.coupling.apply_coupling`), every other multiply and add
+(`repro_torch.core.coupling.apply_coupling`; the CUDA kernel skips Γ's
+zeros, exact zeros for finite power, and gives a row NaN where the dense
+sum meets 0·inf or 0·NaN), every other multiply and add
 rounds on its own (the kernels build with ``-fmad=false``), each pole's
 (1 − a)·G is one f32 product, and ΔT sums the poles in order.  The grid's
 adjacency products have at most two non-zero unit terms per cell, so any
@@ -38,7 +41,11 @@ import torch
 from repro_torch.core.coupling import apply_coupling
 
 _MAX_POLES = 8
-_MAX_CONV_TILES = 2048   # Γ rows and two P blocks fit one block's shared memory
+# the CUDA kernel's widest tile block is 16 tiles, which keeps 2,048 tiles
+# to one wave of 128 blocks on an H100's 132 SMs (every tile's recurrence
+# runs at once); its union list, one int per tile, sits in shared memory
+_MAX_CONV_TILES = 2048
+_CONV_TILE_BLOCKS = (1, 2, 4, 8, 16)   # tiles a block the kernel compiles
 _MAX_GRID_CELLS = 16     # cells per tile edge (a lane's rows in registers)
 
 
@@ -110,23 +117,42 @@ def thermal_conv(power, gamma, decay, gain, state0=None
 thermal_conv.launches = 0
 
 
+def conv_tiles_per_block(n: int, sms: int = 132) -> int:
+    """Tiles a block of the CUDA kernel takes at ``n`` tiles on a card of
+    ``sms`` SMs: the fewest (of 1, 2, 4, 8, 16) that keep the grid to one
+    block an SM — every tile's serial recurrence then runs at once, and
+    fewer tiles a block mean a smaller union of Γ columns to stage (4 at
+    512 tiles on an H100: 128 blocks)."""
+    for tb in _CONV_TILE_BLOCKS:
+        if -(-n // tb) <= sms:
+            return tb
+    return _CONV_TILE_BLOCKS[-1]
+
+
 class _ConvConsts(ctypes.Structure):
     """Mirrors ``struct ThermalConvConsts`` in csrc/thermal_conv.cu."""
 
     _fields_ = [("T", ctypes.c_int), ("n", ctypes.c_int),
                 ("n_poles", ctypes.c_int),
                 ("decay", ctypes.c_float * _MAX_POLES),
-                ("coef", ctypes.c_float * _MAX_POLES)]
+                ("coef", ctypes.c_float * _MAX_POLES),
+                ("tiles_per_block", ctypes.c_int)]
 
 
 def _launch_conv(power, gamma, a, coef, state0):
     from repro_torch.kernels import _build
 
-    fn = _build.load("thermal_conv").thermal_conv_launch
+    lib = _build.load("thermal_conv")
+    fn = lib.thermal_conv_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_ConvConsts)] + [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.POINTER(_ConvConsts)] + [ctypes.c_void_p] * 7
+    words = lib.thermal_conv_scratch_words
+    words.restype = ctypes.c_int
+    words.argtypes = [ctypes.c_int] * 3
     t, n = power.shape
-    c = _ConvConsts(T=t, n=n, n_poles=a.shape[0])
+    tb = conv_tiles_per_block(n, torch.cuda.get_device_properties(
+        power.device).multi_processor_count)
+    c = _ConvConsts(T=t, n=n, n_poles=a.shape[0], tiles_per_block=tb)
     for k in range(a.shape[0]):
         c.decay[k], c.coef[k] = float(a[k]), float(coef[k])
     if state0 is None:
@@ -134,8 +160,12 @@ def _launch_conv(power, gamma, a, coef, state0):
                              device=power.device)
     dts = torch.empty_like(power)
     state = torch.empty_like(state0)
+    # the kernel's step mask, finished-block counter and union masks
+    scratch = torch.empty(words(t, n, tb), dtype=torch.int32,
+                          device=power.device)
     err = fn(ctypes.byref(c), power.data_ptr(), gamma.data_ptr(),
              state0.data_ptr(), dts.data_ptr(), state.data_ptr(),
+             scratch.data_ptr(),
              torch.cuda.current_stream(power.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"thermal_conv kernel launch failed: cudaError_t "
@@ -149,7 +179,8 @@ def thermal_conv_reference(power: torch.Tensor, gamma: torch.Tensor, decay,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `thermal_conv`: same arguments and outputs.
 
-    Γ·P for the whole trace through `apply_coupling`, then a Python loop
+    Γ·P for the whole trace through `apply_coupling` (every multiply-add
+    rounded once, as the kernel's fmaf, on a card too), then a Python loop
     over T in the kernel's op order.  Runs on any device; nothing on the
     main path calls it when a card is present.
     """
@@ -160,7 +191,7 @@ def thermal_conv_reference(power: torch.Tensor, gamma: torch.Tensor, decay,
     coef_t = torch.as_tensor(coef, device=dev)
     state = (torch.zeros((power.shape[1], a.shape[0]), dtype=torch.float32,
                          device=dev) if state0 is None else state0.clone())
-    p_eff = apply_coupling(gamma, power)
+    p_eff = apply_coupling(gamma, power, exact=True)
     dts = torch.empty_like(power)
     for s in range(power.shape[0]):
         state = a_t * state + coef_t * p_eff[s][:, None]

@@ -114,6 +114,64 @@ def test_apply_coupling_matches_reference_in_a_fixed_order():
     np.testing.assert_array_equal(out, acc)
 
 
+def _rn32(exact):
+    """The f32 nearest the exact rational (ties to even)."""
+    from fractions import Fraction
+
+    f = np.float32(float(exact))
+    lo, hi = ((np.nextafter(f, np.float32(-np.inf)), f)
+              if Fraction(float(f)) > exact
+              else (f, np.nextafter(f, np.float32(np.inf))))
+    dl, dh = exact - Fraction(float(lo)), Fraction(float(hi)) - exact
+    if dl != dh:
+        return lo if dl < dh else hi
+    return lo if int(np.float32(lo).view(np.int32)) % 2 == 0 else hi
+
+
+@pytest.mark.parametrize("case", ["above_midpoint", "below_midpoint",
+                                  "negative", "random"])
+def test_fma_f32_rounds_once(case):
+    """`fma_f32` is the single rounding of a·b + c, as fmaf on the card:
+    where the f64 sum lands on an f32 halfway point while the exact sum
+    lies off it, the two roundings of a plain f64 sum would go the wrong
+    way (the first three cases are built so; a·b = 2^-24 ± a few 2^-70
+    beside c ≈ 1)."""
+    from fractions import Fraction
+
+    from repro_torch import fma_f32
+
+    f32 = lambda *v: torch.tensor(v, dtype=torch.float32)
+    if case == "random":      # small products beside large sums, as Γ·P
+        rng = np.random.default_rng(0)
+        a = (rng.uniform(-1, 1, 4000) * 2.0 ** rng.integers(-20, 0, 4000)
+             ).astype(np.float32)
+        b = rng.uniform(-100, 100, 4000).astype(np.float32)
+        c = rng.uniform(-100, 100, 4000).astype(np.float32)
+    else:
+        big, small = 2 ** 23 + 2896, 2 ** 23 - 2895     # product 2^46 + 4688
+        if case == "below_midpoint":                     # product 2^46 − 1
+            big, small = 2 ** 23 + 1, 2 ** 23 - 1
+        a = np.array([big * 2.0 ** -35], np.float32)
+        b = np.array([small * 2.0 ** -35], np.float32)
+        c = np.array([1.0 if case != "below_midpoint" else 1 + 2 ** -23],
+                     np.float32)
+        if case == "negative":
+            a, c = -a, -c
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    want = np.array([_rn32(Fraction(float(x)) * Fraction(float(y))
+                           + Fraction(float(z))) for x, y, z in zip(a, b, c)],
+                    np.float32)
+    np.testing.assert_array_equal(got, want)
+    if case != "random":
+        twice = (torch.from_numpy(a).double() * torch.from_numpy(b).double()
+                 + torch.from_numpy(c).double()).float().numpy()
+        assert not np.array_equal(twice, want)     # the case bites
+    assert fma_f32(2.0, f32(float("inf")), f32(1.0)).item() == float("inf")
+    assert torch.isnan(fma_f32(0.0, f32(float("inf")), f32(1.0))).all()
+
+
+
 @pytest.mark.parametrize("step_ms,lookahead,two_pole", [
     (10.0, 3, True), (5.0, 3, True), (1.0, 20, False), (2.0, 25, True)])
 def test_pole_bank_and_eta_bit_identical(step_ms, lookahead, two_pole):

@@ -126,6 +126,7 @@ def test_cuda_thermal_conv_matches_plain_version(cuda, n, t):
                                      state0)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(np_(a), np_(b), **TOL)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -141,6 +142,107 @@ def test_cuda_thermal_conv_state_carry(cuda):
     np.testing.assert_allclose(np_(torch.cat([a[0], b[0]])), np_(full[0]),
                                **TOL)
     np.testing.assert_allclose(np_(b[1]), np_(full[1]), **TOL)
+    assert torch.equal(torch.cat([a[0], b[0]]), full[0])
+    assert torch.equal(b[1], full[1])
+
+
+def _same(a, b) -> bool:
+    """Bit-equal, NaN equal to NaN."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, nan=0.0),
+                            torch.nan_to_num(b, nan=0.0)))
+
+
+def _conv_case(t, n, cuda, *, gamma=None, n_poles=2, seed=0):
+    """(power, Γ, decay, gain, state0) on the card: 80 + 40·U(0,1) W,
+    the banded row-normalised Γ unless given, a random pole bank."""
+    g = torch.Generator().manual_seed(seed)
+    power = (80.0 + 40.0 * torch.rand((t, n), generator=g)).to(cuda)
+    decay = torch.sort(0.6 + 0.399 * torch.rand(n_poles, generator=g))[0]
+    gain = 0.05 + 0.25 * torch.rand(n_poles, generator=g)
+    state0 = (20.0 * torch.rand((n, n_poles), generator=g)).to(cuda)
+    if gamma is None:
+        gamma = row_normalise(coupling_matrix(n)).to(cuda).contiguous()
+    return power, gamma, decay, gain, state0
+
+
+def _conv_bit_equal(power, gamma, decay, gain, state0):
+    """One launch, bit-equal to the plain version (NaN for NaN)."""
+    before = ttc.thermal_conv.launches
+    out = ttc.thermal_conv(power, gamma, decay, gain, state0)
+    torch.cuda.synchronize()
+    assert ttc.thermal_conv.launches == before + 1
+    ref = ttc.thermal_conv_reference(power, gamma, decay, gain, state0)
+    for a, b in zip(out, ref):
+        assert _same(a, b)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_fma_f32_exact_rounds_once_as_on_the_cpu(cuda):
+    """`fma_f32(..., exact=True)` on the card is the CPU's single rounding —
+    the crafted halfway cases (a·b = 2^-24 ± a few 2^-70 beside c ≈ 1) and
+    small products beside large sums, as a dense Γ's."""
+    from repro_torch import fma_f32
+
+    g = torch.Generator().manual_seed(0)
+    a = ((2 * torch.rand(20000, generator=g) - 1)
+         * 2.0 ** -torch.randint(0, 20, (20000,), generator=g)).float()
+    b = 200 * torch.rand(20000, generator=g) - 100
+    c = 200 * torch.rand(20000, generator=g) - 100
+    big = torch.tensor([2 ** 23 + 2896, 2 ** 23 + 1], dtype=torch.float64)
+    small = torch.tensor([2 ** 23 - 2895, 2 ** 23 - 1], dtype=torch.float64)
+    a = torch.cat([a, (big * 2.0 ** -35).float()])
+    b = torch.cat([b, (small * 2.0 ** -35).float()])
+    c = torch.cat([c, torch.tensor([1.0, 1 + 2 ** -23])])
+    want = fma_f32(a, b, c)
+    got = fma_f32(a.to(cuda), b.to(cuda), c.to(cuda), exact=True)
+    assert torch.equal(got.cpu(), want)
+    assert want[-2].item() == 1 + 2 ** -23 and want[-1].item() == 1 + 2 ** -23
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(100, 900), (2048, 64)])
+def test_cuda_thermal_conv_dense_gamma_bit_equal(cuda, n, t):
+    """A dense random Γ: the union is every column (several stages of the
+    walk a chunk), at 100 tiles and at the widest the wrapper takes."""
+    g = torch.Generator().manual_seed(n)
+    dense = torch.rand((n, n), generator=g)
+    gamma = (dense / dense.sum(1, keepdim=True)).to(cuda).contiguous()
+    _conv_bit_equal(*_conv_case(t, n, cuda, gamma=gamma, seed=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [47, 100, 512])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_cuda_thermal_conv_non_finite_power_bit_equal(cuda, n, bad):
+    """Spans of non-finite power: NaN and ±inf where the plain version's
+    dense product has them — in rows whose Γ is zero at the column too."""
+    power, gamma, decay, gain, state0 = _conv_case(1200, n, cuda, seed=3)
+    if n == 47:
+        gamma = _gamma(47, cuda)
+    power[100:130, n // 3] = bad
+    power[700, n - 1] = bad
+    power[701, 0] = -bad
+    dts, _ = _conv_bit_equal(power, gamma, decay, gain, state0)
+    assert bool(torch.isnan(dts).any())
+    assert bool(torch.isfinite(dts[:100]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_poles", [1, 2, 3, 8])
+def test_cuda_thermal_conv_pole_counts_bit_equal(cuda, n_poles):
+    _conv_bit_equal(*_conv_case(800, 47, cuda, n_poles=n_poles,
+                                seed=n_poles))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(1, 8), (5, 47), (383, 100), (385, 133),
+                                 (1001, 37), (769, 531)])
+def test_cuda_thermal_conv_short_and_ragged_bit_equal(cuda, t, n):
+    """T shorter than one chunk (384 steps) or not a multiple of it, and
+    tile counts that leave a ragged last block."""
+    _conv_bit_equal(*_conv_case(t, n, cuda, seed=t + n))
 
 
 @pytest.mark.cuda

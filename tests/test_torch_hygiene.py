@@ -32,7 +32,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
-    ROOT / "scripts" / "kernel_ab.py"],
+    ROOT / "scripts" / "kernel_ab.py",
+    ROOT / "scripts" / "thermal_conv_limits.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
@@ -117,3 +118,29 @@ def test_kernel_sources_use_no_library_or_tensor_core_product(src):
         assert word not in text, (src.name, word)
     if src.name in TENSOR_CORE_SOURCES:
         assert "wgmma.mma_async" in text, src.name
+
+
+def test_every_port_module_imports_first():
+    """Each module of the port can be the first one a program imports: one
+    interpreter enters them in turn, with ``repro_torch`` dropped from
+    ``sys.modules`` before each, so an import cycle that only some orders
+    survive shows."""
+    src = ROOT / "src"
+    mods = sorted(".".join(p.relative_to(src).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT_FILES)
+    script = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    for k in [k for k in sys.modules\n"
+        "              if k == 'repro_torch' or k.startswith('repro_torch.')]:\n"
+        "        del sys.modules[k]\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except Exception as e:\n"
+        "        print(m, type(e).__name__, e)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(src)
+    r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == "", r.stdout
