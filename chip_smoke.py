@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card's name and power limit (nvidia-smi) and builds the
-         six kernel sources of the checkout, one nvcc each, in parallel.
+         seven kernel sources of the checkout, one nvcc each, in parallel.
 Phase A  the `fleet_step` CUDA kernel against its plain PyTorch version
          (`fleet_step_reference`) on the card at 1 tile × 4,096 packages
          (serve --stream's shape: no Γ), 4 tiles × 200 and 47 tiles × 64,
@@ -114,6 +114,30 @@ Phase I  the §10 Monte-Carlo population and `fleet_step`'s per-package planes.
          of its outage timed in the wide layout beside the same clean
          window in the wide and the packed layout.
 
+Phase J  the resident fleet control plane (PR 18).  (a) `fma_f32.cu` against
+         its plain version (`fma_f32_reference`, on the card and on the
+         CPU), one launch a call, bit for bit, at the broadcast fleet's
+         shapes (scalars, a strided Γ column, per-package planes, the pole
+         bank) and on crafted halfway sums and a dense random Γ; timed at
+         the Γ walk's [4,096, 47] beside its byte bound, its plain version
+         and the two-rounding f64 form, with its launches in one
+         broadcast-fleet step.  (b) `FleetService(SchedulerConfig(n_tiles=
+         47, mixed_mode=True), backend="fused", flush_every=256)` warmed to
+         8,192 packages, 4,096 packages attached over four tenants (one per
+         workload kind), six flushes with an attach that grows the capacity
+         to 8,192, a canary(0.25), a threshold edit, an `ingest` chunk, a
+         snapshot, and 2,049 detaches that shrink it back to 4,096: every
+         flush one `fleet_step` launch and the synchronizing calls of ONE
+         device→host copy (sync debug mode), held to a broadcast service
+         stepping the same chunk from the same state; `FleetService.restore`
+         vs the uninterrupted service ≤1e-5; no kernel library built or
+         loaded after warmup; per-flush host ms by stage.  (c)
+         `GroupedFleetEngine` (pole and ROM groups of 1,024 on the kernel,
+         16 grid lanes per step, 47 tiles, node banks and pins) bit for bit
+         against per-group oracles.  (d) `serve --serve --fleet-backend fused
+         --serve-flushes 4 --port 0 --fleet 0` as a process, driven over
+         HTTP.  (e) `serve --chaos` on the card.
+
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -145,7 +169,7 @@ SHFL_LATENCY_CYCLES = 24
 GRID_CHAIN_FP32_OPS = 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
-           "flash_attention_tc", "ssd")
+           "flash_attention_tc", "ssd", "fma_f32")
 # full-width (tiles, steps) of the thermal kernels' main paths: the paper's
 # 90k-step dataset length at thermal_conv's datacenter width (N = 512, the
 # reference kernel's stated O(512)) and at the 47-tile Ponte-Vecchio grid
@@ -571,6 +595,7 @@ def main() -> None:
     phase_f(dev, trace[peak * flush:(peak + 1) * flush])
     fa_entry, ssd_entry = phase_g(dev)
     phase_h(dev, fa_entry, ssd_entry)
+    fma_entry = phase_j(dev)
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -587,7 +612,7 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         **mc_entry,
-    }, tc_entry, gc_entry, fa_entry, ssd_entry]}))
+    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1699,6 +1724,423 @@ def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
           f"their largest magnitude (bound 1e-4)")
     del params, cache, cache_k, cache_p
     torch.cuda.empty_cache()
+
+
+# Phase J: the resident control plane at cell B's width — the service's
+# config, warmup horizon, packages (four tenants, one per workload kind)
+# and flush window; the grouped fleet's groups; serve --serve's argv
+SVC_TILES, SVC_PACKAGES, SVC_WARM, SVC_FLUSH = 47, 4096, 8192, 256
+SVC_TENANTS = ("acme", "zeta", "orion", "vega")
+GROUP_COUNTS = {"pole": 1024, "rom": 1024, "grid": 16}
+SERVE_SERVE_ARGV = ["--serve", "--fleet-backend", "fused",
+                    "--serve-flushes", "4", "--port", "0", "--fleet", "0"]
+CHAOS_ARGV = ["--chaos"]
+
+
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA calls it made), counted by PyTorch's
+    sync debug mode (one warning per synchronizing call)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # count the per-call warning only: the first "warn" of a process also
+    # emits a one-time notice that the mode is a prototype
+    return out, sum("called a synchronizing CUDA operation" in
+                    str(w.message) for w in caught)
+
+
+def records_close(got: dict, want: dict, where: str) -> float:
+    """Two flush records: telemetry and per-tenant stats within 1e-5
+    (freq_min / at_risk_frac 1e-3, counters exact), alert lists equal;
+    returns the worst relative difference of the 1e-5 fields."""
+    exact = ("n_packages", "events_total", "events_step", "degraded_count",
+             "n_lanes", "events", "degraded_lanes")
+    knife = ("freq_min", "at_risk_frac")
+    worst = 0.0
+
+    def close(a, b, k, w):
+        nonlocal worst
+        if k in exact:
+            check(a == b, f"{w}: {k} {a} vs {b}")
+            return
+        tol = 1e-3 if k in knife else 1e-5
+        check(abs(a - b) <= tol + tol * abs(b), f"{w}: {k} {a} vs {b}")
+        if k not in knife:
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-9))
+
+    for k, v in want["telemetry"].items():
+        close(got["telemetry"][k], v, k, f"{where} telemetry")
+    check(got["tenants"].keys() == want["tenants"].keys(),
+          f"{where}: tenants {sorted(got['tenants'])} vs "
+          f"{sorted(want['tenants'])}")
+    for name, stats in want["tenants"].items():
+        for k, v in stats.items():
+            close(got["tenants"][name][k], v, k, f"{where} tenant {name}")
+    strip = lambda al: [(a["tenant"], a["kind"], a["event"]) for a in al]
+    check(strip(got["alerts"]) == strip(want["alerts"]),
+          f"{where}: alerts {got['alerts']} vs {want['alerts']}")
+    return worst
+
+
+def phase_j(dev) -> dict:
+    """`fma_f32`'s kernel against its plain version, then the resident
+    control plane at full width, the grouped fleet, serve --serve and
+    serve --chaos."""
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch import fma_f32, fma_f32_reference
+    from repro_torch.core import nodebank
+    from repro_torch.core.density import _RTOK_ICEPT_F32, _RTOK_SLOPE_F32
+    from repro_torch.core.pdu_gate import exact_stats
+    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.core.workload import KINDS
+    from repro_torch.fleet import FleetEngine, FleetService
+    from repro_torch.fleet.groups import GroupedFleetEngine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    # ---- (a) the FMA kernel against its plain version, at the broadcast
+    # fleet's shapes (4,096 packages x 47 tiles) and on crafted cases
+    n, nt = SVC_PACKAGES, SVC_TILES
+    g = torch.Generator(device=dev).manual_seed(18)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=g,
+                                                       device=dev)
+    gamma = ThermalScheduler(SchedulerConfig(n_tiles=nt),
+                             device=dev).gamma
+    rho, p, acc = u(0.9, 2.7, n, nt), u(0.0, 120.0, n, nt), u(0, 900, n, nt)
+    big = torch.tensor([2 ** 23 + 2896, 2 ** 23 + 1], dtype=torch.float64)
+    small = torch.tensor([2 ** 23 - 2895, 2 ** 23 - 1], dtype=torch.float64)
+    half = (torch.cat([(u(-1, 1, 20000) * 2.0 ** -torch.randint(
+                0, 20, (20000,), generator=g, device=dev)),
+                (big * 2.0 ** -35).float().to(dev)]),
+            torch.cat([u(-100, 100, 20000), (small * 2.0 ** -35).float()
+                       .to(dev)]),
+            torch.cat([u(-100, 100, 20000),
+                       torch.tensor([1.0, 1 + 2 ** -23], device=dev)]))
+    dense = torch.rand((2048, 2048), generator=g, device=dev)
+    dense = dense / dense.sum(1, keepdim=True)
+    cases = {
+        "power_from_rho [4096, 47], scalar a and c":
+            (_RTOK_SLOPE_F32, rho, _RTOK_ICEPT_F32),
+        "Gamma walk step: column [47] (stride 47) x [4096, 1] + [4096, 47]":
+            (gamma[:, 3], p[:, 3:4], acc),
+        "csum: scalar x [4096, 47] + [4096, 47]": (8.5, rho, acc),
+        "budget: [4096, 1] x [4096, 47] + scalar":
+            (-u(0.1, 0.9, n, 1), acc, 69.0),
+        "pole update: [2] x [4096, 47, 2] + [4096, 47, 2]":
+            (u(0.5, 0.99, 2), u(0, 40, n, nt, 2), u(0, 1, n, nt, 2)),
+        "halfway sums (a.b = 2^-24 +- 2^-70 beside c ~ 1), 20,002":
+            half,
+        "dense random Gamma [2048, 2048]: a column x [64, 1] + [64, 2048]":
+            (dense[:, 7], u(80.0, 120.0, 64, 1), u(50.0, 120.0, 64, 2048)),
+    }
+    fma_err = 0.0
+    for name, (a, b, c) in cases.items():
+        before = fma_f32.launches
+        out = fma_f32(a, b, c)
+        torch.cuda.synchronize()
+        check(fma_f32.launches == before + 1,
+              f"fma_f32 {name}: {fma_f32.launches - before} launches")
+        ref = fma_f32_reference(a, b, c)
+        cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
+        ref_cpu = fma_f32_reference(cpu(a), cpu(b), cpu(c))
+        check(torch.equal(out, ref) and torch.equal(out.cpu(), ref_cpu),
+              f"fma_f32 {name}: differs from the plain version in "
+              f"{int((out != ref).sum())} elements")
+        fma_err = max(fma_err, float((out - ref).abs().max()))
+    tail = fma_f32(*half)[-2:].tolist()
+    check(tail == [1 + 2 ** -23] * 2, f"fma_f32 halfway cases: {tail}")
+    walk = cases["Gamma walk step: column [47] (stride 47) x [4096, 1] + "
+                 "[4096, 47]"]
+    reps = 200
+
+    def per_call(fn):
+        return event_ms(lambda: [fn() for _ in range(reps)], 5) / reps
+
+    fma_ms = per_call(lambda: fma_f32(*walk))
+    fma_plain_ms = per_call(lambda: fma_f32_reference(*walk))
+    a, b, c = walk
+    twice_ms = per_call(lambda: (a * b.double() + c.double()).float())
+    fma_bytes = 4 * (a.numel() + b.numel() + 2 * c.numel())
+    fma_bound, fma_by = bound(fma_bytes, 2 * c.numel())
+    eng = FleetEngine(SchedulerConfig(n_tiles=nt, mode="v24"),
+                      backend="broadcast", device=dev)
+    st = eng.init(n)
+    window = fleet_trace(nt, n, 3 * SVC_FLUSH + 4)[3 * SVC_FLUSH:]
+    step_rho = torch.from_numpy(window).to(dev)
+    for k in range(2):
+        st, _, _ = eng.step(st, step_rho[k])
+    torch.cuda.synchronize()
+    fma_f32.launches = 0
+    st, _, tel = eng.step(st, step_rho[2])
+    step_launches = fma_f32.launches
+    step_ms = []
+    for k in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, tel = eng.step(st, step_rho[3])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[phaseJ] fma_f32.cu bit-equal to its plain version on the card "
+          f"and on the CPU in {len(cases)} cases, one launch each; at the "
+          f"Gamma walk's [{n}, {nt}]: kernel {fma_ms:.5f} ms a call (mean "
+          f"of {reps}, CUDA events), plain {fma_plain_ms:.5f} ms, the "
+          f"two-rounding f64 form {twice_ms:.5f} ms (for information), "
+          f"bound {fma_bound:.5f} ms by {fma_by} ({fma_bytes / 1e6:.2f} "
+          f"MB); {step_launches} fma_f32 launches in one broadcast-fleet "
+          f"step at {n} x {nt} (v24), the step {np.median(step_ms):.3f} ms "
+          f"(host clock, median of 5); {registers('fma_f32')}")
+
+    # ---- (b) the resident control plane at full width, on fused, each
+    # flush record held to a broadcast service fed the same chunks
+    cfg = SchedulerConfig(n_tiles=nt, mode="v24", mixed_mode=True)
+    snap = ROOT / "build" / "phase_j_snapshots"
+    shutil.rmtree(snap, ignore_errors=True)
+    svc = FleetService(cfg, backend="fused", flush_every=SVC_FLUSH,
+                       snapshot_dir=str(snap), log_capacity=8, device=dev)
+    oracle = FleetService(cfg, backend="broadcast", flush_every=SVC_FLUSH,
+                          log_capacity=8, device=dev)
+    check(svc.device.type == dev.type, f"service on {svc.device}")
+    t0 = time.perf_counter()
+    buckets = svc.warmup(SVC_WARM)
+    warm_s = time.perf_counter() - t0
+    counts = dict(_build.COUNTS)
+    t0 = time.perf_counter()
+    attach_syncs = 0
+    for i in range(n):
+        _, k = count_syncs(lambda: svc.attach(
+            f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4]))
+        attach_syncs += k
+        oracle.attach(f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4])
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    _, per_copy = count_syncs(
+        lambda: torch.ones(3, device=dev).cpu())
+    check(per_copy >= 1, "sync debug mode saw no D2H copy")
+    fs.fleet_step.launches = fma_f32.launches = 0
+    ticks, worst, svc_fma = [], 0.0, 0
+
+    def tick(**kw):
+        nonlocal worst, svc_fma
+        syncs0, launches0 = svc.host_syncs, fs.fleet_step.launches
+        fma0, state0 = fma_f32.launches, svc.state
+        rec, k = count_syncs(lambda: svc.tick(**kw))
+        svc_fma += fma_f32.launches - fma0
+        check(svc.host_syncs == syncs0 + 1 and k == per_copy,
+              f"flush {rec['flush']}: {svc.host_syncs - syncs0} copies, "
+              f"{k} synchronizing calls (one copy makes {per_copy})")
+        check(fs.fleet_step.launches == launches0 + 1,
+              f"flush {rec['flush']}: "
+              f"{fs.fleet_step.launches - launches0} fleet_step launches")
+        # the broadcast service steps the same window from the same state,
+        # its sliding statistics re-derived from the ring as the fused
+        # backend re-derives them on entry (a fresh lane's closed-form sums
+        # differ from those by an ulp, which the coupled law's knife edge
+        # amplifies: PERF.md, PR 18)
+        ft = state0.filtration
+        oracle.state = state0._replace(filtration=ft._replace(**dict(zip(
+            ("wsum", "csum", "rsum"), exact_stats(ft.buf, ft.ptr)))))
+        want = oracle.tick(chunk=rec["rho"])
+        worst = max(worst, records_close(rec, want,
+                                         f"flush {rec['flush']}"))
+        ticks.append(dict(svc.last_tick_ms))
+        print(f"[phaseJ] flush {rec['flush']}: capacity {rec['capacity']}, "
+              f"n {rec['telemetry']['n_packages']}, p99 "
+              f"{rec['telemetry']['temp_p99_c']:.2f} C, alerts "
+              f"{[(a['tenant'], a['kind'], a['event']) for a in rec['alerts']]}"
+              f", fed {rec['ingest_fed']}; host ms " + json.dumps(
+                  {k: round(v, 3) for k, v in svc.last_tick_ms.items()}))
+        return rec
+
+    tick()
+    tick()
+    for s in (svc, oracle):                   # n + 1 packages: grow to 2n
+        plan = s.attach("extra", "acme", "training")["plan"]
+        check(plan == "grow", f"attach past 4,096: plan {plan}")
+    tick()
+    feed = np.full((SVC_FLUSH, nt), 2.6, np.float32)
+    for s in (svc, oracle):
+        s.canary(0.25)
+        s.set_thresholds("zeta", t_crit_c=60.0)
+    check(svc.ingest("orion", feed)["accepted"], "ingest refused")
+    rec = tick()
+    check(rec["ingest_fed"] == ["orion"], f"ingest fed {rec['ingest_fed']}")
+    svc.save_snapshot(blocking=True)
+    tick()
+    gone = ["extra"] + [f"pkg{i}" for i in range(n) if i % 4 >= 2]
+    t0 = time.perf_counter()
+    for name in gone:                          # n / 2 left: shrink to n
+        for s in (svc, oracle):
+            plan = s.detach(name)["plan"]
+    check(plan == "shrink" and svc.registry.capacity == n,
+          f"detach to {n // 2}: plan {plan}, capacity "
+          f"{svc.registry.capacity}")
+    detach_s = time.perf_counter() - t0
+    final = tick()
+    torch.cuda.synchronize()
+    check(fs.fleet_step.launches == len(ticks),
+          f"{fs.fleet_step.launches} fleet_step launches in {len(ticks)} "
+          f"flushes")
+    svc_launches = {"fleet_step": fs.fleet_step.launches,
+                    "fma_f32": svc_fma}
+    t0 = time.perf_counter()
+    restored = FleetService.restore(str(snap), device=dev)
+    check(restored.flushes == final["flush"],
+          f"restored at flush {restored.flushes}")
+    again = restored.tick()
+    restore_s = time.perf_counter() - t0
+    rel = records_close(again, final, "restore vs uninterrupted")
+    for f in ("thermal", "freq", "events", "throttled", "ctrl_mode"):
+        a = getattr(restored.state, f).float()
+        b = getattr(svc.state, f).float()
+        check(torch.allclose(a, b, **TOL), f"restored state.{f} differs")
+    check(_build.COUNTS == counts, f"kernel libraries built or loaded after "
+          f"warmup: {counts} -> {_build.COUNTS}")
+    med = {k: float(np.median([t[k] for t in ticks[:2] + ticks[4:5]]))
+           for k in ticks[0]}
+    print(f"[phaseJ] service {n} packages x {nt} tiles on fused, flush "
+          f"{SVC_FLUSH}: warmup of {buckets} buckets {warm_s:.2f} s, "
+          f"{n} attaches (each on both services) {attach_s:.2f} s, the "
+          f"fused service's with {attach_syncs} synchronizing calls, "
+          f"{len(gone)} detaches "
+          f"{detach_s:.2f} s; {len(ticks)} flushes, "
+          f"{svc_launches['fleet_step']} fleet_step launches (1 a flush) "
+          f"and {svc_launches['fma_f32']} fma_f32 launches, 1 D2H copy a "
+          f"flush, each "
+          f"record held to the broadcast service (worst rel "
+          f"{worst:.2e}); median host ms of the plain flushes "
+          + json.dumps({k: round(v, 3) for k, v in med.items()})
+          + f"; restore + 1 flush {restore_s:.2f} s, vs uninterrupted "
+          f"{rel:.2e}; builds / loads after warmup: 0 / 0")
+
+    # ---- (c) the grouped fleet: pole and ROM groups on the kernel, a small
+    # grid group per step, against per-group oracles bit for bit
+    gcfg = SchedulerConfig(n_tiles=nt, mode="v24", mixed_mode=True,
+                           heterogeneous=True)
+    ge = GroupedFleetEngine(gcfg, backend="fused",
+                            groups=tuple(GROUP_COUNTS), device=dev)
+    nodes = [("base", "n7", "n5", "n3")[i % 4]
+             for i in range(GROUP_COUNTS["pole"])]
+    pkg = {"pole": nodebank.fleet_package_params(ge.engines["pole"].sched,
+                                                 nodes)}
+    states = ge.init(GROUP_COUNTS, pkg=pkg)
+    pins = {grp: torch.arange(k, device=dev) % 3 == 0
+            for grp, k in GROUP_COUNTS.items()}
+    for grp in ge.groups:
+        states[grp] = states[grp]._replace(ctrl_mode=pins[grp])
+    total = sum(GROUP_COUNTS.values())
+    gtrace = torch.from_numpy(fleet_trace(nt, total, SVC_FLUSH)).to(dev)
+    fs.fleet_step.launches = 0
+    t0 = time.perf_counter()
+    _, temps, freqs = ge.block_traces(states, gtrace)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    check(fs.fleet_step.launches == 2,
+          f"grouped window: {fs.fleet_step.launches} fleet_step launches")
+    sl = ge.lane_slices(states)
+    for grp in ge.groups:
+        e = FleetEngine(ge.engines[grp].cfg, backend="fused", device=dev)
+        st = e.init(GROUP_COUNTS[grp], pkg=pkg.get(grp))._replace(
+            ctrl_mode=pins[grp])
+        _, tg, fg = e.block_traces(st, gtrace[:, sl[grp]])
+        check(torch.equal(temps[:, sl[grp]], tg)
+              and torch.equal(freqs[:, sl[grp]], fg),
+              f"grouped {grp} lanes differ from the {grp} oracle")
+    _, grec = ge.run_block(ge.init(GROUP_COUNTS, pkg=pkg), gtrace)
+    gd = grec.as_dict()
+    check(gd["n_packages"] == total and all(np.isfinite(v)
+                                           for v in gd.values()),
+          f"grouped flush record {gd}")
+    print(f"[phaseJ] GroupedFleetEngine {GROUP_COUNTS} x {nt} tiles on "
+          f"fused: one window {group_s * 1e3:.1f} ms (host clock; 2 "
+          f"fleet_step launches, grid per step), every group bit-equal to "
+          f"its oracle; merged record " + json.dumps(gd))
+
+    # ---- (d) serve --serve as a process, driven over HTTP
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve",
+         *SERVE_SERVE_ARGV], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        lines, base = [], None
+        for line in proc.stdout:
+            lines.append(line)
+            if "control plane on http://" in line:
+                base = line.split("control plane on ")[1].split()[0]
+                break
+        check(base is not None, "serve --serve never listened:\n"
+              + "".join(lines)[-3000:])
+
+        def call(path, body=None):
+            req = urllib.request.Request(
+                base + path, data=None if body is None
+                else json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                raw = r.read().decode()
+            return raw if path == "/dashboard" else json.loads(raw)
+
+        check(call("/healthz")["ok"], "serve --serve: /healthz not ok")
+        call("/thresholds", {"tenant": "ops", "t_crit_c": 40.0})
+        fed = call("/ingest", {"tenant": "ops",
+                               "chunk": [[2.6]] * 50})
+        check(fed["accepted"], f"serve --serve: ingest {fed}")
+        check("fleet control plane" in call("/dashboard"),
+              "serve --serve: /dashboard")
+        check(call("/fleet")["n_active"] == 0, "serve --serve: not empty")
+        # the attach starts the flushes: the last call, so that the four
+        # flushes cannot end the process under a pending request
+        call("/attach", {"package": "probe", "tenant": "ops"})
+        out, _ = proc.communicate(timeout=600)
+        lines.append(out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    flushes = [l for l in text.splitlines() if l.startswith("[serve] flush")]
+    check(proc.returncode == 0 and len(flushes) == 4,
+          f"serve --serve: rc {proc.returncode}, {len(flushes)} flushes:\n"
+          + text[-3000:])
+    check("alerts 0" not in flushes[0],
+          f"serve --serve: the first flush raised no alert: {flushes[0]}")
+    print("[phaseJ] serve --serve (" + " ".join(SERVE_SERVE_ARGV)
+          + "), driven over HTTP (thresholds, ingest, dashboard, "
+          "attach): " + " | ".join(flushes))
+
+    # ---- (e) serve --chaos on the card
+    t0 = time.perf_counter()
+    check(serve.main(CHAOS_ARGV) == {"chaos": "ok"}, "serve --chaos")
+    chaos_s = time.perf_counter() - t0
+    print(f"[phaseJ] serve --chaos: all gates passed in {chaos_s:.1f} s; "
+          f"phase J {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "fma_f32", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fma_f32.cu",
+            "replaces": "none: not a TPU kernel (the single-rounding f32 "
+                        "FMA that XLA contracts in the reference's compiled "
+                        "fleet loop)",
+            "launches": svc_launches["fma_f32"],
+            "launches_per_broadcast_step": step_launches,
+            "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,
+            "two_rounding_ms": twice_ms, "bound_ms": fma_bound,
+            "bound_by": fma_by, "library_ms": None,
+            "service_fleet_step_launches": svc_launches["fleet_step"],
+            "service_tick_ms": med}
 
 
 if __name__ == "__main__":

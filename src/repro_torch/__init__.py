@@ -14,12 +14,18 @@ Conventions every module follows:
     for it, as the tests do;
   * Γ products are f32 fused multiply-adds in one fixed order
     (`core.coupling.apply_coupling`), never a TF32-capable GEMM;
-  * the multiply-adds whose results cancel are fused (`fma_f32`) and the
-    control law's fractional power is correctly rounded (`pow_f32`).
+  * the multiply-adds whose results cancel are fused (`fma_f32`: on a card
+    one launch of the hand-written FMA kernel) and the control law's
+    fractional power is correctly rounded (`pow_f32`).
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
+
+_FMA_MAX_DIMS = 8     # FMA_MAX_DIMS of csrc/fma_f32.cu
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,7 +42,105 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def fma_f32(a, b: torch.Tensor, c, *, exact: bool = False) -> torch.Tensor:
+def _f32_scalar(x):
+    """A python number as the f32 value both versions compute with."""
+    return float(np.float32(x))
+
+
+def fma_f32_reference(a, b: torch.Tensor, c) -> torch.Tensor:
+    """a·b + c rounded ONCE to f32: the plain version of `fma_f32`.
+
+    ``a`` and ``c`` are f32 tensors broadcasting against ``b`` or numbers
+    (taken as f32), so a·b is exact in f64.  Its sum with c, rounded to
+    f64 and then to f32, is rounded twice, which differs from one rounding
+    only where the f64 sum lands exactly halfway between two f32 values
+    while the exact sum lies off it (a small a·b beside a large c: a dense
+    Γ's terms meet it about once in 10⁸ products).  There the sum moves one
+    f64 step toward the exact value (its TwoSum error) before the cast, so
+    the result is the FMA's for results in f32's normal range.  On the CPU
+    the correction runs only where such a sum occurred (finding out is
+    free there); on a card it runs on every element, since finding out
+    would be a host sync.
+    """
+    a = a if torch.is_tensor(a) else _f32_scalar(a)
+    c = c.double() if torch.is_tensor(c) else _f32_scalar(c)
+    x = (a.double() if torch.is_tensor(a) else a) * b.double()
+    s = x + c
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if x.device.type == "cpu" and not bool(mid.any()):
+        return s.float()
+    t = s - x
+    err = (x - (s - t)) + (c - t)
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    return torch.where(mid & (err != 0), torch.nextafter(s, toward),
+                       s).float()
+
+
+class _FmaArgs(ctypes.Structure):
+    """`FmaArgs` of csrc/fma_f32.cu: one call's layout."""
+
+    _fields_ = [("sizes", ctypes.c_int64 * _FMA_MAX_DIMS),
+                ("stride_a", ctypes.c_int64 * _FMA_MAX_DIMS),
+                ("stride_b", ctypes.c_int64 * _FMA_MAX_DIMS),
+                ("stride_c", ctypes.c_int64 * _FMA_MAX_DIMS),
+                ("ndim", ctypes.c_int32),
+                ("n", ctypes.c_int64)]
+
+
+def _fma_layout(shape, strides) -> tuple[list[int], list[list[int]]]:
+    """The output shape and each operand's element strides with adjacent
+    dimensions merged where every operand allows it (a contiguous call
+    becomes one dimension); size-1 dimensions are dropped."""
+    dims = [(n, [st[d] for st in strides]) for d, n in enumerate(shape)
+            if n != 1]
+    if not dims:
+        return [1], [[0] for _ in strides]
+    merged = [dims[0]]
+    for n, st in dims[1:]:
+        m, mst = merged[-1]
+        if all(s0 == s1 * n for s0, s1 in zip(mst, st)):
+            merged[-1] = (m * n, st)
+        else:
+            merged.append((n, st))
+    return ([n for n, _ in merged],
+            [[st[i] for _, st in merged] for i in range(len(strides))])
+
+
+# launch layouts by the operands' (shape, stride) signature: the per-step
+# engines call the same few shapes thousands of times, and a launch must
+# cost little more than the kernel (a bounded cache of pure functions of
+# the shapes, never of the values)
+_FMA_PLANS: dict = {}
+
+
+def _fma_plan(a, b, c) -> tuple[torch.Size, _FmaArgs]:
+    """(output shape, `_FmaArgs`) for operands of these shapes and strides."""
+    ta, tc = torch.is_tensor(a), torch.is_tensor(c)
+    key = (a.shape if ta else None, a.stride() if ta else None, b.shape,
+           b.stride(), c.shape if tc else None, c.stride() if tc else None)
+    plan = _FMA_PLANS.get(key)
+    if plan is not None:
+        return plan
+    ops = [x for x in (a, b, c) if torch.is_tensor(x)]
+    shape = torch.broadcast_shapes(*(x.shape for x in ops))
+    if len(shape) > _FMA_MAX_DIMS:
+        raise ValueError(f"fma_f32 takes at most {_FMA_MAX_DIMS} dimensions, "
+                         f"got {tuple(shape)}")
+    sizes, strides = _fma_layout(
+        shape, [x.expand(shape).stride() for x in ops])
+    strides = iter(strides)
+    args = _FmaArgs(ndim=len(sizes), n=shape.numel())
+    args.sizes[:len(sizes)] = sizes
+    for name, x in (("a", a), ("b", b), ("c", c)):
+        if torch.is_tensor(x):
+            getattr(args, f"stride_{name}")[:len(sizes)] = next(strides)
+    if len(_FMA_PLANS) >= 4096:
+        _FMA_PLANS.clear()
+    plan = _FMA_PLANS[key] = (shape, args)
+    return plan
+
+
+def fma_f32(a, b: torch.Tensor, c) -> torch.Tensor:
     """a·b + c rounded ONCE to f32: a fused multiply-add.
 
     The reference's fleet loop runs as a compiled XLA program, which
@@ -47,33 +151,51 @@ def fma_f32(a, b: torch.Tensor, c, *, exact: bool = False) -> torch.Tensor:
     limit — so there that single rounding shows at 1e-5, and every port
     version computes exactly those multiply-adds as FMAs (the CUDA kernels
     with fmaf).  The Γ products accumulate with it too (`apply_coupling`).
-    ``a`` (a constant or tensor), ``b`` and ``c`` are f32, so a·b is exact
-    in f64.  Its sum with c, rounded to f64 and then to f32, is rounded
-    twice, which differs from one rounding only where the f64 sum lands
-    exactly halfway between two f32 values while the exact sum lies off it
-    (a small a·b beside a large c: a dense Γ's terms meet it about once in
-    10⁸ products).  There the sum moves one f64 step toward the exact value
-    (its TwoSum error) before the cast, so the result is the FMA's for
-    results in f32's normal range.  On the CPU that correction runs where
-    such a sum occurred (finding out is free there).  On a card finding
-    out would be a host sync, so the correction runs on every element, and
-    only with ``exact=True`` — as the plain versions that a kernel is held
-    to bit for bit ask for it; the per-step engines, bound by launches,
-    keep the two roundings.
+
+    ``b`` is an f32 tensor; ``a`` and ``c`` are f32 tensors on its device
+    that broadcast against it, or numbers (taken as f32).  On a CUDA tensor
+    this launches csrc/fma_f32.cu once (broadcast passed as strides, no
+    copies) and counts the launch in ``fma_f32.launches``; on a CPU tensor
+    it runs the plain version, `fma_f32_reference`.  A failed build or
+    launch raises.
     """
-    x = a * b.double()
-    c = c.double() if torch.is_tensor(c) else c
-    s = x + c
-    if x.device.type != "cpu" and not exact:
-        return s.float()
-    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    if x.device.type == "cpu" and not bool(mid.any()):
-        return s.float()
-    t = s - x
-    err = (x - (s - t)) + (c - t)
-    toward = torch.where(err > 0, float("inf"), float("-inf"))
-    return torch.where(mid & (err != 0), torch.nextafter(s, toward),
-                       s).float()
+    if b.device.type == "cpu":
+        return fma_f32_reference(a, b, c)
+    ta, tc = torch.is_tensor(a), torch.is_tensor(c)
+    for x in (a, b, c):
+        if torch.is_tensor(x) and (x.device != b.device
+                                   or x.dtype != torch.float32):
+            raise ValueError(f"fma_f32 takes f32 tensors on {b.device}, got "
+                             f"{x.dtype} on {x.device}")
+    shape, args = _fma_plan(a, b, c)
+    out = torch.empty(shape, dtype=torch.float32, device=b.device)
+    if args.n == 0:
+        return out
+    err = _fma_fn()(a.data_ptr() if ta else None, b.data_ptr(),
+                    c.data_ptr() if tc else None, out.data_ptr(),
+                    ctypes.byref(args), 0.0 if ta else _f32_scalar(a),
+                    0.0 if tc else _f32_scalar(c),
+                    torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fma_f32 kernel launch failed: cudaError_t {err}")
+    fma_f32.launches += 1
+    return out
+
+
+fma_f32.launches = 0
+
+
+def _fma_fn():
+    """`fma_f32_launch` of csrc/fma_f32.cu, built and bound at first use."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fma_f32").fma_f32_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.POINTER(_FmaArgs), ctypes.c_float,
+                          ctypes.c_float, ctypes.c_void_p])
+    return fn
 
 
 def pow_f32(x: torch.Tensor, y: float) -> torch.Tensor:

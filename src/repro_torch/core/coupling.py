@@ -85,8 +85,7 @@ def _xla_order_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
     return _xla_order_row_sum(torch.stack(parts, dim=1), window)
 
 
-def apply_coupling(gamma: torch.Tensor, p: torch.Tensor, *,
-                   exact: bool = False) -> torch.Tensor:
+def apply_coupling(gamma: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Γ @ p over the trailing tile axis, tolerating leading batch dims.
 
     p: [..., n_tiles] → [..., n_tiles].  Accumulated source tile by source
@@ -94,12 +93,12 @@ def apply_coupling(gamma: torch.Tensor, p: torch.Tensor, *,
     the CUDA `fleet_step` kernel uses, so the kernel, its plain version and
     the per-step engine share one rounding and event counts agree exactly
     on the card.  (A GEMM would pick its own blocking and order per device;
-    Γ never goes through one, so TF32 cannot touch it.)  ``exact`` asks
-    `fma_f32` for the single rounding on a card too (the CPU always has it).
+    Γ never goes through one, so TF32 cannot touch it.)  On a card each
+    step is one launch of the FMA kernel (`fma_f32`).
     """
     acc = torch.zeros_like(p)
     for j in range(gamma.shape[1]):
-        acc = fma_f32(gamma[:, j], p[..., j:j + 1], acc, exact=exact)
+        acc = fma_f32(gamma[:, j], p[..., j:j + 1], acc)
     return acc
 
 

@@ -12,7 +12,11 @@ recent density samples.  Two representations coexist, picked by
 
 The write pointer ``ptr`` is a fleet-wide clock, not per-package state: it
 lives on the host as a 0-dim int32 tensor, so the wraparound refresh is a
-host decision and no step waits on the device to take it.
+host decision and no step waits on the device to take it.  The ``vmap``
+fleet backend gives every lane its own clock instead: ``ptr`` is then an
+[*batch] int32 tensor on the device, the ring is written and read at each
+lane's own slot, and the wraparound refresh is computed for every lane and
+selected where that lane wrapped (as the reference's vmapped ``lax.cond``).
 
 Preposition fraction: η = 1 − exp(−Δt_la/τ) → 22.12 % @ 20 ms, 46.47 % @ 50 ms.
 """
@@ -40,7 +44,7 @@ class Filtration(NamedTuple):
     """Ring buffer Ft of per-tile density history. buf: [*batch, window, n_tiles].
 
     The window axis is always ``-2``; ``ptr`` (host, 0-dim int32) is the
-    next write slot shared by the whole batch.
+    next write slot shared by the whole batch (per lane under vmap).
     """
 
     buf: torch.Tensor
@@ -149,18 +153,51 @@ def exact_stats(buf: torch.Tensor, ptr,
     return wsum, csum, rsum
 
 
+def _lane_slot(ptr: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """Per-lane ring indices [*batch] as a gather/scatter index
+    [*batch, 1, n_tiles] into ``buf`` [*batch, W, n_tiles]."""
+    return ptr.long()[..., None, None].expand(*buf.shape[:-2], 1,
+                                               buf.shape[-1])
+
+
+def _lane_read(buf: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """The ring row at each lane's own slot: [*batch, n_tiles]."""
+    return torch.gather(buf, -2, _lane_slot(ptr, buf)).squeeze(-2)
+
+
+def _lane_write(buf: torch.Tensor, ptr: torch.Tensor,
+                rho: torch.Tensor) -> torch.Tensor:
+    """A new ring with ``rho`` written at each lane's own slot."""
+    return buf.scatter(-2, _lane_slot(ptr, buf), rho[..., None, :])
+
+
 def _observe_stats(ft: FiltrationStats, rho: torch.Tensor) -> FiltrationStats:
     """O(1) sliding update: evict-read, three multiply-adds, one write
-    (``csum``'s two multiply-adds fused, `repro_torch.fma_f32`)."""
+    (``csum``'s two multiply-adds fused, `repro_torch.fma_f32`).  With
+    per-lane pointers (the vmap layout) the ring is read and written at
+    each lane's own slot and the wraparound refresh is selected per lane."""
     w = ft.buf.shape[-2]
     q = recent_len(w)
     tm = (w - 1) / 2.0
-    p = int(ft.ptr)
-    x_old = ft.buf[..., p, :]
-    x_rec = ft.buf[..., (p + w - q) % w, :]
+    lanes = ft.ptr.ndim > 0
+    if lanes:
+        x_old = _lane_read(ft.buf, ft.ptr)
+        x_rec = _lane_read(ft.buf, (ft.ptr + w - q) % w)
+    else:
+        p = int(ft.ptr)
+        x_old = ft.buf[..., p, :]
+        x_rec = ft.buf[..., (p + w - q) % w, :]
     wsum = ft.wsum - x_old + rho
     csum = fma_f32(tm, rho, fma_f32(tm + 1.0, x_old, ft.csum - ft.wsum))
     rsum = ft.rsum - x_rec + rho
+    if lanes:
+        buf = _lane_write(ft.buf, ft.ptr, rho)
+        nxt = ((ft.ptr + 1) % w).to(torch.int32)
+        wrap = (nxt == 0)[..., None]
+        wsum, csum, rsum = (torch.where(wrap, e, x) for e, x in
+                            zip(exact_stats(buf, 0), (wsum, csum, rsum)))
+        return FiltrationStats(buf=buf, ptr=nxt, wsum=wsum, csum=csum,
+                               rsum=rsum)
     buf = ft.buf.clone()            # states are values: callers may keep ft
     buf[..., p, :] = rho
     nxt = (p + 1) % w
@@ -177,6 +214,9 @@ def observe(ft, rho: torch.Tensor):
     if isinstance(ft, FiltrationStats):
         return _observe_stats(ft, rho)
     w = ft.buf.shape[-2]
+    if ft.ptr.ndim:
+        return Filtration(buf=_lane_write(ft.buf, ft.ptr, rho),
+                          ptr=((ft.ptr + 1) % w).to(torch.int32))
     p = int(ft.ptr)
     buf = ft.buf.clone()
     buf[..., p, :] = rho
@@ -185,6 +225,11 @@ def observe(ft, rho: torch.Tensor):
 
 def _ordered(ft: Filtration) -> torch.Tensor:
     """History oldest→newest along the window axis (-2)."""
+    if ft.ptr.ndim:
+        w = ft.buf.shape[-2]
+        idx = (torch.arange(w, device=ft.buf.device)
+               + ft.ptr.long()[..., None]) % w              # [*batch, W]
+        return torch.gather(ft.buf, -2, idx[..., None].expand(ft.buf.shape))
     return torch.roll(ft.buf, -int(ft.ptr), dims=-2)
 
 

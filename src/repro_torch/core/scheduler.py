@@ -13,7 +13,9 @@ State contract:
     filtration ``ptr``) are fleet-wide clocks, not per-package state: they
     live on the host as 0-dim int32 tensors, so every branch taken on them
     (the wraparound refresh, the reactive_poll sensor phase) is a host
-    decision.
+    decision.  The ``vmap`` fleet backend carries them per lane instead,
+    as [n] int32 device tensors; `update` then takes each branch per lane
+    (`_polled`, `pdu_gate.observe`).
 
   * `PackageParams` rows (per-package process variation, §10) batch the
     same way and ride in the state; their η is derived eagerly with the
@@ -146,6 +148,14 @@ class SchedulerOutput(NamedTuple):
     eta: torch.Tensor               # scalar preposition fraction
     at_risk: torch.Tensor           # [..., n_tiles] bool straggler-risk flags
     balance: torch.Tensor           # [..., n_tiles] work-rebalance weights (sum=1)
+
+
+def _polled(step: torch.Tensor, poll):
+    """The sensor's poll flag this step: a host bool on the fleet's shared
+    clock, or [*batch, 1 | tiles] on per-lane clocks."""
+    if step.ndim == 0:
+        return (int(step) % poll) == 0
+    return (step[..., None] % poll) == 0
 
 
 class ThermalScheduler:
@@ -416,7 +426,7 @@ class ThermalScheduler:
             p_eff = self._couple(p_now * f_used ** c.power_exponent)
             thermal_next = self.plant.step(st.thermal, p_eff, poles=poles)
             temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
-            polled = (int(st.step) % poll) == 0
+            polled = _polled(st.step, poll)
             trig = (temp >= fp.t_crit_c) & polled
             cool = (temp <= c.resume_below_c) & polled
             throttled = torch.where(deg_t, (st.throttled | trig) & ~cool,
@@ -467,7 +477,7 @@ class ThermalScheduler:
         thermal_next = self.plant.step(st.thermal, p_eff, poles=poles)
         temp = fp.t_ambient_c + self.plant.delta_t(thermal_next)
 
-        polled = (int(st.step) % poll) == 0
+        polled = _polled(st.step, poll)
         trig = (temp >= fp.t_crit_c) & polled
         cool = (temp <= c.resume_below_c) & polled
         events = st.events + (trig & ~st.throttled).any(dim=-1).to(

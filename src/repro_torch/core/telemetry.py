@@ -4,7 +4,7 @@ Port of `repro.core.telemetry`.  Paper budget: a 64-byte per-tile packet at
 1 Mbps ⇒ 512 µs transfer, well inside the 20 ms look-ahead minimum; hint
 dispatch reuses the management channel in reverse.  `budget()` reproduces
 that arithmetic (and the §7.1 overhead rows); `TelemetryLog` is a bounded
-host-side ring of per-step scheduler records.
+host-side ring of per-step (or per-flush) scheduler records.
 """
 from __future__ import annotations
 
@@ -38,10 +38,15 @@ def budget(n_tiles: int = 8, fp: Fingerprint = FINGERPRINT) -> dict:
 
 
 def _jsonable(v: Any) -> Any:
-    """A telemetry field as a JSON-serialisable host value: scalars (numbers,
-    one-element arrays or tensors) become floats, larger arrays lists."""
+    """A telemetry field as a host value: scalars (numbers, one-element
+    arrays or tensors) become floats, larger tensors lists.  A larger numpy
+    array is kept as it is — the control plane's flush chunks (~49 M f32
+    values a flush at 4,096 packages × 47 tiles × 256 steps) would not fit
+    as Python floats — and `TelemetryLog.dump_jsonl` writes it as a list."""
     if isinstance(v, (int, float)):
         return float(v)
+    if isinstance(v, np.ndarray) and v.size > 1:
+        return v
     if hasattr(v, "detach"):               # torch tensor, on any device
         v = v.detach().cpu().numpy()
     if getattr(v, "shape", None) is not None:
@@ -75,7 +80,14 @@ class TelemetryLog:
         return self._rows[-1]
 
     def dump_jsonl(self, path: str) -> None:
-        """Write the ring as JSON lines (one record per row)."""
+        """Write the ring as JSON lines (one record per row; kept numpy
+        arrays as lists)."""
         with open(path, "w") as f:
             for r in self._rows:
-                f.write(json.dumps(r) + "\n")
+                f.write(json.dumps(r, default=_array_list) + "\n")
+
+
+def _array_list(v: Any) -> Any:
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    raise TypeError(f"{type(v).__name__} is not JSON serializable")

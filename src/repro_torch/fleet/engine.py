@@ -7,7 +7,10 @@ pluggable backend (`repro_torch.fleet.backends`):
   * ``broadcast`` — batch-shaped state tensors, one `update` per step
     (the default, and the engine-level oracle);
   * ``fused``     — `run_block`/`run_chunked`/`stream` windows advance in
-    one `fleet_step` call: on CUDA one launch of the Hopper kernel.
+    one `fleet_step` call: on CUDA one launch of the Hopper kernel;
+  * ``vmap``      — per-lane clocks, one `update` per step (the
+    reference's per-package layout; a lane attached mid-flight restarts
+    its own clocks).
 
     eng = FleetEngine(SchedulerConfig(n_tiles=4, mode="v24"),
                       backend="fused")            # device defaults to CUDA
@@ -464,9 +467,12 @@ class FleetEngine:
         return state, _stack(records)
 
     @staticmethod
-    def _step0(state0: SchedulerState) -> int:
-        """The fleet's global step at window entry (a shared host clock)."""
-        return int(state0.step)
+    def _step0(state0: SchedulerState):
+        """The fleet's global step at window entry: the shared host clock,
+        or (vmap's per-lane clocks) lane 0's, as the reference reads it —
+        a 0-dim device tensor, so no host sync."""
+        s = state0.step
+        return int(s) if s.ndim == 0 else s.reshape(-1)[0]
 
     def _poll(self, state0: SchedulerState):
         """The sensor's polling period: shared, or per package and tile."""
@@ -586,6 +592,15 @@ class FleetEngine:
         per-step records."""
         ev_step, deg_count, rho_trace = self._event_plane(
             rho_trace, temps, state0, active)
+        return self._traces_record(rho_trace, temps, freqs, prev_events,
+                                   ev_step, deg_count, active)
+
+    def _traces_record(self, rho_trace, temps, freqs, prev_events, ev_step,
+                       deg_count, active=None) -> FleetTelemetry:
+        """The masked / unmasked trace reductions behind
+        `_telemetry_from_traces`, from precomputed [T] event and degraded
+        planes — `groups.GroupedFleetEngine` sums per-group planes and
+        concatenates per-group traces before calling this once fleet-wide."""
         t, n = temps.shape[0], temps.shape[1]
         tf = temps.reshape(t, -1)
         ff = freqs.reshape(t, -1)

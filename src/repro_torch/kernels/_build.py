@@ -51,6 +51,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# nvcc builds and library loads since the process started: the resident
+# service's gate (after its warmup, no tick, surgery or restore builds or
+# loads a kernel library) reads these
+COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -94,6 +98,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    COUNTS["builds"] += 1
     try:
         report = compile_source(CSRC / f"{name}.cu", Path(tmp))
     except RuntimeError:
@@ -136,6 +141,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+        COUNTS["loads"] += 1
     return lib
 
 

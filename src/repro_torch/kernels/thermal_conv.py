@@ -191,7 +191,7 @@ def thermal_conv_reference(power: torch.Tensor, gamma: torch.Tensor, decay,
     coef_t = torch.as_tensor(coef, device=dev)
     state = (torch.zeros((power.shape[1], a.shape[0]), dtype=torch.float32,
                          device=dev) if state0 is None else state0.clone())
-    p_eff = apply_coupling(gamma, power, exact=True)
+    p_eff = apply_coupling(gamma, power)
     dts = torch.empty_like(power)
     for s in range(power.shape[0]):
         state = a_t * state + coef_t * p_eff[s][:, None]

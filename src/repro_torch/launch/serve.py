@@ -45,8 +45,21 @@ guard-band margins derived from them.  ``--node`` gives every fleet lane
 that technology node's pole rows (`core.nodebank`; ``base`` keeps the
 homogeneous fleet).
 
-Not ported yet, each exits non-zero naming its ROADMAP step: ``--serve``
-and ``--chaos`` (both need the resident `FleetService`) and
+``--serve`` starts the RESIDENT control plane (`repro_torch.fleet.service`)
+instead of the wave loop: a `FleetService` on ``--device`` with
+``--fleet`` packages attached (0: it starts empty and packages attach over
+HTTP), warmed across its capacity buckets, ticking one flush per
+``--flush-every`` steps while the HTTP operator API
+(docs/torch_serving.md) listens on ``--port``; it runs until POST
+/shutdown, SIGTERM (a final blocking snapshot with ``--snapshot-dir``) or
+``--serve-flushes`` flushes of a non-empty fleet.  ``--chaos`` runs the
+fault-injection soak: hint starvation and recovery, sensor-fault
+containment on every backend, the degraded alert's edges at the service,
+and SIGTERM → snapshot → `FleetService.restore` ≤1e-5-equivalent to an
+uninterrupted run with no kernel library built or loaded after the
+restore's warmup; it exits non-zero on any failed gate.
+
+Not ported yet, each exits non-zero naming its ROADMAP step:
 ``--distributed``; the unported model families (`transformer.
 check_supported`).  ``--plant grid|rom`` streams through the per-step path
 of ``broadcast``; on ``fused`` ``rom`` rides the kernel's het rows and
@@ -72,9 +85,6 @@ from repro_torch.launch import steps as S
 from repro_torch.models import transformer as tf
 
 _NOT_PORTED = {
-    "serve": ("--serve (the resident control plane)", 8),
-    "chaos": ("--chaos (the fault-injection soak: its service phases need "
-              "the resident FleetService)", 8),
     "distributed": ("--distributed (multi-host streaming)", 9),
 }
 
@@ -157,6 +167,244 @@ def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
     return {"stream": flushed, "host_syncs": stats.host_syncs,
             "flushes": stats.flushes, "pkg_steps_per_s": rate,
             "trace": trace}
+
+
+def _serve_resident(args, sched_cfg: SchedulerConfig) -> dict:
+    """--serve: the resident multi-tenant control plane
+    (docs/torch_serving.md).
+
+    With ``--snapshot-dir`` the service journals every membership op and
+    snapshots every ``--snapshot-every`` flushes; a SIGTERM (preemption)
+    takes one final BLOCKING snapshot before exiting, so
+    `FleetService.restore()` resumes the stream losslessly."""
+    import dataclasses
+
+    from repro_torch.distributed.fault_tolerance import PreemptionGuard
+    from repro_torch.fleet.service import FleetService, serve_http
+    # the resident plane always carries the per-lane controller pins so
+    # operators can canary (POST /canary, /mode) without a restart;
+    # unpinned lanes are bit-identical to a plain v24 fleet
+    sched_cfg = dataclasses.replace(sched_cfg, mixed_mode=True)
+    svc = FleetService(sched_cfg, backend=args.fleet_backend,
+                       min_capacity=4, flush_every=args.flush_every,
+                       seed=args.seed,
+                       snapshot_dir=args.snapshot_dir or None,
+                       snapshot_every=args.snapshot_every,
+                       heartbeat_timeout_s=args.heartbeat_timeout,
+                       device=args.device)
+    n0 = max(args.fleet, 0)      # 0: start empty, packages attach over HTTP
+    buckets = svc.warmup(max_packages=max(2 * n0, 8))
+    print(f"[serve] warmed {buckets} capacity buckets on {svc.device} "
+          f"(no kernel library built or loaded from here)")
+    for i in range(n0):
+        svc.attach(f"pkg{i}", tenant="default", kind="inference",
+                   node=args.node)
+    guard = PreemptionGuard()
+    server, _ = serve_http(svc, host=args.host, port=args.port)
+    host, port = server.server_address[:2]
+    print(f"[serve] control plane on http://{host}:{port} — "
+          f"GET /healthz /telemetry /fleet /alerts /dashboard, "
+          f"POST /attach /detach /thresholds /ingest /replay /shutdown "
+          f"/canary /mode", flush=True)
+    flushes = 0
+    try:
+        while (not svc.shutting_down and not guard.should_exit
+               and (args.serve_flushes == 0
+                    or flushes < args.serve_flushes)):
+            rec = svc.tick()
+            if rec is None:
+                time.sleep(0.05)       # empty fleet — idle until an attach
+                continue
+            flushes += 1
+            d = rec["telemetry"]
+            print(f"[serve] flush {rec['flush']}: n={d['n_packages']} "
+                  f"cap={rec['capacity']} p99 {d['temp_p99_c']:.1f}C "
+                  f"f_mean {d['freq_mean']:.3f} "
+                  f"alerts {len(rec['alerts'])}", flush=True)
+    finally:
+        if guard.should_exit and svc.snapshot_dir is not None:
+            step = svc.save_snapshot(blocking=True)
+            print(f"[serve] preempted: final snapshot at step {step} "
+                  f"-> {svc.snapshot_dir}")
+        guard.restore()
+        server.shutdown()
+    return {"flushes": flushes, "port": port,
+            "capacity": svc.registry.capacity,
+            "n_active": svc.registry.n_active,
+            "host_syncs": svc.host_syncs,
+            "preempted": guard.should_exit}
+
+
+def _chaos_soak(args) -> dict:
+    """--chaos: the fault-injection soak, four phases, each gated — any
+    failure exits non-zero:
+
+      1. fleet-wide hint starvation: every lane falls back to reactive
+         polling, then recovers with hysteresis;
+      2. per-lane sensor faults (dropout + NaN/Inf corruption): contained
+         on every backend (broadcast, fused, vmap), unaffected lanes
+         bit-match a fault-free run, telemetry equivalent across backends;
+      3. the service surface: the ``degraded`` alert fires on the rising
+         edge and clears on the falling edge;
+      4. mid-run SIGTERM → final snapshot → `FleetService.restore()`
+         resumes ≤1e-5-equivalent to an uninterrupted oracle, with no
+         kernel library built or loaded after the restore's warmup.
+    """
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch.distributed.fault_tolerance import PreemptionGuard
+    from repro_torch.fleet import FaultPlan
+    from repro_torch.fleet.faults import HintOutage, SensorFault
+    from repro_torch.fleet.service import FleetService
+    from repro_torch.kernels import _build
+
+    dev = resolve_device(args.device)
+    failures: list[str] = []
+
+    def check(ok, msg):
+        print(f"[chaos] {'ok  ' if ok else 'FAIL'} {msg}")
+        if not ok:
+            failures.append(msg)
+
+    def host(x) -> np.ndarray:
+        return x.detach().cpu().numpy()
+
+    cfg = SchedulerConfig(n_tiles=2, mode="v24", filtration_window=16,
+                          degraded_fallback=True, stale_limit_steps=4,
+                          recover_steps=8)
+    n, T, K = 8, 384, 64
+    rng = np.random.default_rng(args.seed)
+    trace = rng.uniform(0.9, 2.7, (T, n, cfg.n_tiles)).astype(np.float32)
+
+    # -- phase 1: hint starvation — engage + hysteresis recovery ----------
+    starve = FaultPlan(seed=args.seed, hint_outages=(HintOutage(96, 24),))
+    eng = FleetEngine(cfg, backend="broadcast", device=dev, debug_nan=True)
+    st, tel = eng.run_chunked(eng.init(n), starve.apply(trace, 0), K)
+    dc = host(tel.degraded_count)                  # [F] window peaks
+    check(int(dc[96 // K]) == n,
+          f"starvation flush degrades all {n} lanes (peaks {dc.tolist()})")
+    check(int(dc[-1]) == 0, "fleet recovered by the final flush")
+    check(int(host(st.degraded).sum()) == 0, "no lane left degraded")
+
+    # -- phase 2: sensor faults — containment on every backend ------------
+    plan = FaultPlan(seed=args.seed,
+                     sensor_faults=(SensorFault(2, "dropout", 120, 48),
+                                    SensorFault(5, "corrupt", 180, 32)))
+    faulted = plan.apply(trace, 0)
+    ok_lanes = [i for i in range(n) if i not in plan.faulted_lanes()]
+    exact = ("events_total", "events_step", "degraded_count", "n_packages")
+    knife = ("freq_min", "at_risk_frac")
+    ref = None
+    for be in available_backends():
+        e1 = FleetEngine(cfg, backend=be, device=dev, debug_nan=True)
+        s1, t1 = e1.run_chunked(e1.init(n), faulted, K)
+        e0 = FleetEngine(cfg, backend=be, device=dev)
+        s0, _ = e0.run_chunked(e0.init(n), trace, K)
+        bit = all(np.array_equal(host(getattr(s1, f))[ok_lanes],
+                                 host(getattr(s0, f))[ok_lanes])
+                  for f in ("freq", "thermal", "events", "rho_last"))
+        check(bit, f"{be}: unaffected lanes bit-match the fault-free run")
+        d1 = {k: host(v) for k, v in t1._asdict().items()}
+        check(int(d1["degraded_count"].max()) >= 1
+              and int(d1["degraded_count"][-1]) == 0,
+              f"{be}: faulted lanes degrade and recover "
+              f"(peaks {d1['degraded_count'].tolist()})")
+        if ref is None:
+            ref = d1
+            continue
+        for k, v in d1.items():
+            if k in exact:
+                same = np.array_equal(ref[k], v)
+            elif k in knife:
+                same = np.allclose(ref[k], v, rtol=1e-3, atol=1e-3)
+            else:
+                same = np.allclose(ref[k], v, rtol=1e-4, atol=5e-5)
+            check(same, f"{be}: telemetry[{k}] matches "
+                        f"{available_backends()[0]}")
+
+    # -- phase 3: degraded alert rises and clears at the service ----------
+    svc = FleetService(cfg, flush_every=50, seed=args.seed, debug_nan=True,
+                       device=dev)
+    for i in range(4):
+        svc.attach(f"pkg{i}", tenant="acme")
+    svc.set_thresholds("acme", degraded_limit=0)
+    cap = svc.registry.capacity
+    chunk = rng.uniform(0.9, 2.7, (50, cap, cfg.n_tiles)).astype(np.float32)
+    bad_chunk = chunk.copy()
+    bad_chunk[25:, 0, :] = np.nan       # lane 0 dark through the flush edge
+    svc.tick(chunk=chunk)
+    rec_bad = svc.tick(chunk=bad_chunk)
+    rec_ok = svc.tick(chunk=chunk)      # sensor back — recover + clear
+    rec_clean = svc.tick(chunk=chunk)   # fully recovered window
+    fired = [a for a in rec_bad["alerts"] if a["kind"] == "degraded"]
+    cleared = [a for a in rec_ok["alerts"] if a["kind"] == "degraded"]
+    check(len(fired) == 1 and fired[0]["event"] == "fired",
+          f"degraded alert fired once ({fired})")
+    check(len(cleared) == 1 and cleared[0]["event"] == "cleared",
+          f"degraded alert cleared once ({cleared})")
+    check(not [a for a in rec_clean["alerts"] if a["kind"] == "degraded"],
+          "no duplicate degraded events once steady")
+    check(rec_bad["telemetry"]["degraded_count"] >= 1
+          and rec_clean["telemetry"]["degraded_count"] == 0,
+          "flush records carry the degraded counts")
+
+    # -- phase 4: SIGTERM mid-run → snapshot → restore → equivalence ------
+    def drive(svc, until, grow_at):
+        while svc.flushes < until:
+            if svc.flushes == grow_at:       # capacity transition mid-run
+                for i in range(4, 9):
+                    svc.attach(f"pkg{i}", tenant="acme")
+            svc.tick()
+        return svc.log.rows()[-1]["telemetry"]
+
+    f_total, f_kill, f_grow = 16, 10, 6
+    oracle = FleetService(cfg, flush_every=50, seed=args.seed, device=dev)
+    for i in range(4):
+        oracle.attach(f"pkg{i}", tenant="acme")
+    final_oracle = drive(oracle, f_total, f_grow)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        victim = FleetService(cfg, flush_every=50, seed=args.seed,
+                              snapshot_dir=tmp, snapshot_every=4,
+                              device=dev)
+        victim.warmup(16)
+        for i in range(4):
+            victim.attach(f"pkg{i}", tenant="acme")
+        guard = PreemptionGuard()
+        drive(victim, f_kill, f_grow)
+        os.kill(os.getpid(), signal.SIGTERM)     # preemption notice
+        time.sleep(0)                            # let the handler run
+        check(guard.should_exit, "SIGTERM reached the PreemptionGuard")
+        victim.save_snapshot(blocking=True)      # the --serve exit path
+        guard.restore()
+        del victim
+
+        restored = FleetService.restore(tmp, debug_nan=True, device=dev)
+        check(restored.flushes == f_kill and restored.registry.n_active == 9,
+              f"restored at flush {restored.flushes} with "
+              f"{restored.registry.n_active} packages")
+        counts = dict(_build.COUNTS)
+        final_restored = drive(restored, f_total, f_grow)
+        check(_build.COUNTS == counts,
+              f"no kernel library built or loaded after restore "
+              f"({counts} -> {_build.COUNTS})")
+        worst = max(abs(final_restored[k] - final_oracle[k])
+                    / max(abs(final_oracle[k]), 1e-9)
+                    for k in final_oracle)
+        check(worst <= 1e-5,
+              f"restore ≤1e-5-equivalent to uninterrupted "
+              f"(worst rel diff {worst:.2e})")
+        restored.wait_snapshots()
+
+    if failures:
+        print(f"[chaos] {len(failures)} failure(s):")
+        for f in failures:
+            print(f"[chaos]   - {f}")
+        raise SystemExit(1)
+    print("[chaos] all gates passed")
+    return {"chaos": "ok"}
 
 
 def _sync(device: torch.device) -> None:
@@ -273,8 +521,35 @@ def main(argv=None):
                     help="streaming control-plane soak (async ingest, 1 "
                          "host sync per gen-step flush)")
     ap.add_argument("--distributed", action="store_true")
-    ap.add_argument("--serve", action="store_true")
-    ap.add_argument("--chaos", action="store_true")
+    ap.add_argument("--serve", action="store_true",
+                    help="resident control plane: FleetService + HTTP "
+                         "operator API instead of the wave loop "
+                         "(docs/torch_serving.md)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="--serve bind address")
+    ap.add_argument("--port", type=int, default=8787,
+                    help="--serve port (0 = ephemeral)")
+    ap.add_argument("--flush-every", type=int, default=50,
+                    help="--serve steps per flush window")
+    ap.add_argument("--serve-flushes", type=int, default=0,
+                    help="--serve: stop after N flushes (0 = run until "
+                         "POST /shutdown)")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="--serve: journal + snapshot directory; enables "
+                         "crash-consistent recovery via "
+                         "FleetService.restore()")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="--serve: async snapshot every N flushes "
+                         "(needs --snapshot-dir)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=0.0,
+                    help="--serve: mark /healthz stalled when no flush "
+                         "lands for this many seconds (0 = off)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fault-injection soak: starvation fallback + "
+                         "recovery, sensor-fault containment on every "
+                         "backend, degraded alert edges, SIGTERM -> "
+                         "snapshot -> restore equivalence; exits non-zero "
+                         "on any failed gate")
     ap.add_argument("--montecarlo", type=int, default=0,
                     help="run the §10 Monte-Carlo population with N trials "
                          "instead of serving")
@@ -288,6 +563,8 @@ def main(argv=None):
         if getattr(args, flag):
             raise SystemExit(f"repro_torch.launch.serve: {what} is not "
                              f"ported yet: ROADMAP queue 1 step {step}")
+    if args.chaos:
+        return _chaos_soak(args)
     if args.montecarlo:
         return _montecarlo(args)
 
@@ -301,6 +578,8 @@ def main(argv=None):
     shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
                         "decode")
     rho = float(rho_v24(cfg, shape))
+    if args.serve:                   # resident control plane, no wave loop
+        return _serve_resident(args, sched_cfg)
     if args.stream:
         return _stream_soak(args, sched_cfg, rho)
     try:

@@ -180,9 +180,9 @@ def _conv_bit_equal(power, gamma, decay, gain, state0):
 
 @pytest.mark.cuda
 def test_cuda_fma_f32_exact_rounds_once_as_on_the_cpu(cuda):
-    """`fma_f32(..., exact=True)` on the card is the CPU's single rounding —
-    the crafted halfway cases (a·b = 2^-24 ± a few 2^-70 beside c ≈ 1) and
-    small products beside large sums, as a dense Γ's."""
+    """`fma_f32` on the card (its kernel, csrc/fma_f32.cu) is the CPU's
+    single rounding — the crafted halfway cases (a·b = 2^-24 ± a few 2^-70
+    beside c ≈ 1) and small products beside large sums, as a dense Γ's."""
     from repro_torch import fma_f32
 
     g = torch.Generator().manual_seed(0)
@@ -196,9 +196,68 @@ def test_cuda_fma_f32_exact_rounds_once_as_on_the_cpu(cuda):
     b = torch.cat([b, (small * 2.0 ** -35).float()])
     c = torch.cat([c, torch.tensor([1.0, 1 + 2 ** -23])])
     want = fma_f32(a, b, c)
-    got = fma_f32(a.to(cuda), b.to(cuda), c.to(cuda), exact=True)
+    got = fma_f32(a.to(cuda), b.to(cuda), c.to(cuda))
     assert torch.equal(got.cpu(), want)
     assert want[-2].item() == 1 + 2 ** -23 and want[-1].item() == 1 + 2 ** -23
+
+
+def _fma_case(name, cuda):
+    """(a, b, c) on the card for one broadcast pattern of the port's call
+    sites: scalars, a strided Γ column against a [n, 1] column view, a
+    per-package [n, 1] plane, a pole bank over a trailing axis, 0-dim
+    tensors, a transposed (non-contiguous) b."""
+    g = torch.Generator().manual_seed(7)
+    u = lambda lo, hi, *s: (lo + (hi - lo) * torch.rand(s, generator=g)
+                            ).to(cuda)
+    gamma = row_normalise(coupling_matrix(47)).to(cuda)
+    return {
+        "scalars": lambda: (0.7217, u(0.9, 2.7, 256, 47), -1256.6),
+        "gamma_column": lambda: (gamma[:, 5], u(0, 120, 256, 47)[:, 5:6],
+                                 u(0, 900, 256, 47)),
+        "per_package": lambda: (-u(0.1, 0.9, 256, 1), u(0, 40, 256, 47),
+                                69.0),
+        "pole_bank": lambda: (u(0.5, 0.99, 2), u(0, 40, 64, 47, 2),
+                              u(0, 1, 64, 47, 2)),
+        "zero_dim": lambda: (u(0, 1, 1)[0], u(-5, 5, 33), u(-5, 5, 1)[0]),
+        "transposed": lambda: (u(0, 1, 47, 1), u(-5, 5, 256, 47).mT,
+                               u(-5, 5, 47, 256)),
+        "dense_gamma": lambda: (u(0, 1e-3, 2048), u(80, 120, 64, 1),
+                                u(50, 120, 64, 2048)),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scalars", "gamma_column", "per_package",
+                                  "pole_bank", "zero_dim", "transposed",
+                                  "dense_gamma"])
+def test_cuda_fma_f32_kernel_bit_equal_one_launch(cuda, name):
+    """Every broadcast pattern the port calls `fma_f32` with: one launch of
+    the kernel, bit-equal to the plain version on the card and on the CPU,
+    broadcast carried as strides (the inputs are not copied)."""
+    from repro_torch import fma_f32, fma_f32_reference
+
+    a, b, c = _fma_case(name, cuda)
+    before = fma_f32.launches
+    out = fma_f32(a, b, c)
+    torch.cuda.synchronize()
+    assert fma_f32.launches == before + 1
+    cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
+    assert torch.equal(out, fma_f32_reference(a, b, c))
+    assert torch.equal(out.cpu(), fma_f32_reference(cpu(a), cpu(b), cpu(c)))
+    assert out.is_contiguous() and out.dtype == torch.float32
+    shapes = [x.shape for x in (a, b, c) if torch.is_tensor(x)]
+    assert out.shape == torch.broadcast_shapes(*shapes)
+
+
+@pytest.mark.cuda
+def test_cuda_fma_f32_refuses_mixed_devices_and_types(cuda):
+    from repro_torch import fma_f32
+
+    b = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="f32 tensors"):
+        fma_f32(torch.ones(4), b, 0.0)
+    with pytest.raises(ValueError, match="f32 tensors"):
+        fma_f32(1.0, b, torch.ones(4, dtype=torch.float64, device=cuda))
 
 
 @pytest.mark.cuda
@@ -717,3 +776,85 @@ def test_cuda_models_launch_kernels_in_prefill_only(cuda, arch):
         (n_attn, n_ssd)
     np.testing.assert_allclose(np_(last), np_(cpu_last), atol=1e-4)
     np.testing.assert_allclose(np_(lg), np_(cpu_lg), atol=1e-4)
+
+
+def _sync_calls(fn):
+    """(fn(), the synchronizing CUDA calls it made, by PyTorch's sync debug
+    mode)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+@pytest.mark.cuda
+def test_cuda_service_one_copy_per_tick_and_no_builds_after_warmup(cuda):
+    """The resident service on the card: after `warmup`, attach / detach
+    across buckets, canary and ticks build and load no kernel library;
+    every tick makes exactly the synchronizing calls of ONE device→host
+    copy, and the surgery none; one `fleet_step` launch a tick."""
+    from repro_torch.fleet import FleetService
+    from repro_torch.kernels import _build
+
+    cfg = SchedulerConfig(n_tiles=4, mixed_mode=True)
+    svc = FleetService(cfg, backend="fused", flush_every=32, device=cuda)
+    svc.warmup(max_packages=16)
+    counts = dict(_build.COUNTS)
+    _, per_copy = _sync_calls(lambda: torch.ones(3, device=cuda).cpu())
+    assert per_copy >= 1
+    for i in range(6):
+        _, k = _sync_calls(lambda: svc.attach(f"p{i}", "acme"))
+        assert k == 0
+    for frac in (0.5, 0.0):
+        _, k = _sync_calls(lambda: svc.canary(frac))
+        assert k == 0
+        before = tfs.fleet_step.launches
+        rec, k = _sync_calls(svc.tick)
+        assert k == per_copy and tfs.fleet_step.launches == before + 1
+        assert rec["capacity"] == 8
+    for i in range(5):
+        _, k = _sync_calls(lambda: svc.detach(f"p{i}"))
+        assert k == 0
+    rec, k = _sync_calls(svc.tick)
+    assert k == per_copy and rec["capacity"] == 4
+    assert _build.COUNTS == counts and svc.host_syncs == 3
+
+
+@pytest.mark.cuda
+def test_cuda_service_flush_records_match_broadcast(cuda):
+    """Each fused flush record on the card equals the broadcast service's
+    on the same chunk from the same state (statistics re-derived from the
+    ring, as the fused backend does on entry)."""
+    from repro_torch.fleet import FleetService
+
+    cfg = SchedulerConfig(n_tiles=47, mixed_mode=True)
+    fused = FleetService(cfg, backend="fused", flush_every=64, device=cuda)
+    plain = FleetService(cfg, backend="broadcast", flush_every=64,
+                         device=cuda)
+    for s in (fused, plain):
+        for i in range(24):
+            s.attach(f"p{i}", ("acme", "zeta")[i % 2],
+                     ("inference", "training", "vision", "batch")[i % 4])
+        s.canary(0.25)
+        s.set_thresholds("zeta", t_crit_c=60.0)
+    for _ in range(3):
+        st = fused.state
+        rec = fused.tick()
+        ft = st.filtration
+        plain.state = st._replace(filtration=ft._replace(**dict(zip(
+            ("wsum", "csum", "rsum"), exact_stats(ft.buf, ft.ptr)))))
+        want = plain.tick(chunk=rec["rho"])
+        for k, v in want["telemetry"].items():
+            tol = 1e-3 if k in ("freq_min", "at_risk_frac") else 1e-5
+            assert rec["telemetry"][k] == pytest.approx(v, rel=tol,
+                                                        abs=tol), k
+        assert ([(a["tenant"], a["kind"], a["event"]) for a in rec["alerts"]]
+                == [(a["tenant"], a["kind"], a["event"])
+                    for a in want["alerts"]])

@@ -195,7 +195,7 @@ def test_engine_guards():
     with pytest.raises(ValueError, match="empty density trace"):
         e.run_survey(s, np.zeros((0, 4, 4), np.float32))
     with pytest.raises(ValueError, match="unknown fleet backend"):
-        TEngine(TCfg(), backend="vmap", device="cpu")
+        TEngine(TCfg(), backend="sharded", device="cpu")
 
 
 def test_fleet_engine_default_device_raises_without_cuda():
@@ -241,15 +241,30 @@ def test_serve_stream_runs_on_cpu_and_backends_agree():
 
 
 @pytest.mark.parametrize("flags,step", [
-    (["--serve"], 8), (["--chaos"], 8),
     (["--stream", "--distributed"], 9), (["--arch", "rwkv6-1.6b"], 10)])
 def test_serve_unported_paths_exit_nonzero(flags, step):
     with pytest.raises(SystemExit) as exc:
         serve.main(flags + ["--device", "cpu"])
     assert exc.value.code not in (0, None)
     assert f"ROADMAP queue 1 step {step}" in str(exc.value.code)
-    if "--chaos" in flags:
-        assert "FleetService" in str(exc.value.code)
+
+
+def test_serve_resident_control_plane_runs_on_cpu():
+    """``--serve`` (ROADMAP queue 1 step 8): the resident service warms its
+    buckets, attaches the fleet, answers on an ephemeral port and stops
+    after the asked flushes, one host copy each."""
+    res = serve.main(["--serve", "--serve-flushes", "2", "--port", "0",
+                      "--device", "cpu", "--fleet", "3"])
+    assert res["flushes"] == res["host_syncs"] == 2
+    assert res["n_active"] == 3 and res["port"] > 0
+    assert res["preempted"] is False
+
+
+def test_serve_chaos_soak_passes_on_cpu():
+    """``--chaos``: starvation and recovery, sensor-fault containment on
+    every backend, the degraded alert's edges and SIGTERM → snapshot →
+    restore equivalence, every gate passing."""
+    assert serve.main(["--chaos", "--device", "cpu"]) == {"chaos": "ok"}
 
 
 @pytest.mark.parametrize("flags", [

@@ -33,7 +33,8 @@ def _imported_modules(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
     ROOT / "scripts" / "kernel_ab.py",
-    ROOT / "scripts" / "thermal_conv_limits.py"],
+    ROOT / "scripts" / "thermal_conv_limits.py",
+    ROOT / "examples" / "torch_broadcast_step.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
@@ -59,10 +60,16 @@ def test_port_has_every_module_of_the_slice():
                 "models/attention.py", "models/ssm.py",
                 "models/transformer.py", "launch/steps.py",
                 "core/montecarlo.py", "core/guardband.py",
-                "core/nodebank.py", "fleet/faults.py"):
+                "core/nodebank.py", "fleet/faults.py",
+                "fleet/backends/vmap.py", "fleet/groups.py",
+                "fleet/registry.py", "fleet/alerts.py", "fleet/service.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "distributed/__init__.py",
+                "distributed/fault_tolerance.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
-                "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu"):
+                "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu",
+                "fma_f32.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file(), src
 
