@@ -162,7 +162,6 @@ def _tree(tree, dev):
 def params_from_numpy(cfg, tree, device=None) -> dict:
     """Port parameters for ``cfg`` from the reference's parameter pytree
     with numpy leaves: same keys, same stacked layout, same dtypes."""
-    transformer.check_supported(cfg)
     want = {"embed", "final_norm", "blocks"}
     if not cfg.tie_embeddings:
         want.add("lm_head")
@@ -177,11 +176,11 @@ def params_from_numpy(cfg, tree, device=None) -> dict:
 
 def cache_from_numpy(cfg, tree, device=None) -> dict:
     """Port decode cache for ``cfg`` from a reference cache dict with numpy
-    leaves (``h``/``conv``/``k``/``v``/``pos`` for hybrid, ``k``/``v``/
-    ``pos`` for dense)."""
-    transformer.check_supported(cfg)
-    want = ({"h", "conv", "k", "v", "pos"} if cfg.family == "hybrid"
-            else {"k", "v", "pos"})
+    leaves, keyed as `transformer.init_cache` keys it: ``h``/``prev_t``/
+    ``prev_c`` (RWKV6), ``h``/``conv``/``k``/``v``/``pos`` (hybrid),
+    ``c``/``kr`` (MLA), ``k``/``v``/``ks``/``vs``/``pos`` (int8),
+    ``k``/``v``/``pos`` (the rest)."""
+    want = set(transformer.init_cache(cfg, 1, 1, device="meta"))
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: cache keys {sorted(tree)}, want "
                          f"{sorted(want)}")

@@ -15,8 +15,13 @@ p99 token latency (the first decode call is not counted).  Weights are the
 reference's random initialisation at the published widths, drawn on the
 device from ``--seed``; prompts are drawn from ``--seed`` too.  On a card
 prefill runs every attention through the hand-written flash kernel and
-every Mamba2 layer through the ssd kernel; decode runs neither.  Served
-families: dense (Gemma, Granite) and hybrid (Zamba2).
+every Mamba2 and RWKV6 layer through the ssd kernel; decode runs neither.
+Every architecture in `configs` is served: dense (Gemma, Granite), hybrid
+(Zamba2), ssm (RWKV6), moe (Mixtral with its sliding-window ring,
+DeepSeek-V2 with MLA) and the stub frontends (chameleon's patch and
+musicgen's frame embeddings: prompts are 0.02·N(0, 1) embeddings
+[admit, prompt_len, d_model] and decode feeds one fixed embedding
+[admit, d_model] every step, as the reference does).
 
 ``--stream`` replaces the wave loop with the control-plane soak: the whole
 ``waves × gen``-step density trace of a ``--fleet``-package fleet is driven
@@ -59,9 +64,8 @@ and SIGTERM → snapshot → `FleetService.restore` ≤1e-5-equivalent to an
 uninterrupted run with no kernel library built or loaded after the
 restore's warmup; it exits non-zero on any failed gate.
 
-Not ported yet, each exits non-zero naming its ROADMAP step:
-``--distributed``; the unported model families (`transformer.
-check_supported`).  ``--plant grid|rom`` streams through the per-step path
+Not ported yet, exiting non-zero naming its ROADMAP step:
+``--distributed``.  ``--plant grid|rom`` streams through the per-step path
 of ``broadcast``; on ``fused`` ``rom`` rides the kernel's het rows and
 ``grid`` is handed to the per-step path.
 """
@@ -452,12 +456,19 @@ def _wave_loop(args, cfg, sched_cfg: SchedulerConfig, rho: float) -> dict:
         admit = max(1, int(args.batch * freq0))
         admitted_hist.append(admit)
 
-        prompts = torch.randint(2, cfg.vocab_size, (admit, args.prompt_len),
-                                generator=prompt_gen, device=dev)
+        if cfg.frontend == "token":
+            prompts = torch.randint(2, cfg.vocab_size,
+                                    (admit, args.prompt_len),
+                                    generator=prompt_gen, device=dev)
+        else:                        # stub frontend: frame / patch embeds
+            prompts, frame = (0.02 * torch.randn(
+                shape, generator=prompt_gen, device=dev) for shape in (
+                    (admit, args.prompt_len, cfg.d_model),
+                    (admit, cfg.d_model)))
         _sync(dev)
         t0 = time.perf_counter()
         last, cache = prefill_fn(params, prompts)
-        tok = torch.argmax(last, -1)
+        tok = torch.argmax(last, -1) if cfg.frontend == "token" else frame
         _sync(dev)
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -465,7 +476,8 @@ def _wave_loop(args, cfg, sched_cfg: SchedulerConfig, rho: float) -> dict:
             t1 = time.perf_counter()
             logits, cache = decode_fn(params, cache, tok,
                                       args.prompt_len + i)
-            tok = torch.argmax(logits, -1)
+            if cfg.frontend == "token":      # a stub frontend's frame stays
+                tok = torch.argmax(logits, -1)
             _sync(dev)
             if wave or i:               # the first call warms up, as the
                 lat.append(time.perf_counter() - t1)   # reference's jit
@@ -489,7 +501,7 @@ def _wave_loop(args, cfg, sched_cfg: SchedulerConfig, rho: float) -> dict:
     return result
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
@@ -557,17 +569,12 @@ def main(argv=None):
                     help="steps per Monte-Carlo trial, past the 400-step "
                          "burn-in (>= 3000 reproduces the paper's §10 "
                          "distributions)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    for flag, (what, step) in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"repro_torch.launch.serve: {what} is not "
-                             f"ported yet: ROADMAP queue 1 step {step}")
-    if args.chaos:
-        return _chaos_soak(args)
-    if args.montecarlo:
-        return _montecarlo(args)
 
+def wave_setup(args) -> tuple:
+    """(the model config, the fleet's scheduler config, the base density
+    ρv24 at the serving shape) for ``args``."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -577,15 +584,25 @@ def main(argv=None):
                                 heterogeneous=args.node != "base")
     shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
                         "decode")
-    rho = float(rho_v24(cfg, shape))
+    return cfg, sched_cfg, float(rho_v24(cfg, shape))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    for flag, (what, step) in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"repro_torch.launch.serve: {what} is not "
+                             f"ported yet: ROADMAP queue 1 step {step}")
+    if args.chaos:
+        return _chaos_soak(args)
+    if args.montecarlo:
+        return _montecarlo(args)
+
+    cfg, sched_cfg, rho = wave_setup(args)
     if args.serve:                   # resident control plane, no wave loop
         return _serve_resident(args, sched_cfg)
     if args.stream:
         return _stream_soak(args, sched_cfg, rho)
-    try:
-        tf.check_supported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"repro_torch.launch.serve: {e}")
     return _wave_loop(args, cfg, sched_cfg, rho)
 
 

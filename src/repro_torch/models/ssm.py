@@ -1,18 +1,26 @@
-"""Mamba2 blocks on the chunked-SSD core (`repro_torch.kernels.ops.ssd`).
+"""State-space / linear-attention blocks on the chunked-SSD core
+(`repro_torch.kernels.ops.ssd`): Mamba2 and RWKV6 (Finch).
 
-Port of the Mamba2 half of `repro.models.ssm` (RWKV6 waits for ROADMAP
-queue 1 step 10):
+Port of `repro.models.ssm`:
 
     h_t = d_t ⊙ h_{t−1} + b_t ⊗ x_t,     y_t = c_t · h_t
 
-with d_t = exp(−Δt·exp(A_log)) (a scalar per head, broadcast over the state
-dim N), b_t = Δt·B_t, c_t = C_t, a D-skip and a SiLU-gated output.  Prefill
-runs the whole sequence through the `ssd` kernel on a card; decode carries
-the O(1) state through `ssd_decode_step`.
+  * Mamba2: d_t = exp(−Δt·exp(A_log)) (a scalar per head, broadcast over
+    the state dim N), b_t = Δt·B_t, c_t = C_t, a D-skip and a SiLU-gated
+    output.
+  * RWKV6: d_t = exp(−exp(w_t)) per channel (a data-dependent decay from a
+    low-rank "lora" on w), b_t = k_t, c_t = r_t, the current token through
+    the bonus u (``include_current=False``), token-shift mixing and a
+    channel-mix block.
 
-The reference's dtype promotions are kept: Δt and the decay are f32, B and
-C come out of the bf16 projection, so at bf16 the kernel receives f32 d and
-b, bf16 c and x, and y comes back in x's dtype.
+Prefill runs the whole sequence through the `ssd` kernel on a card; decode
+carries the O(1) state through `ssd_decode_step` (no kernel, as in the
+reference).
+
+The reference's dtype promotions are kept: Mamba2's Δt and decay and
+RWKV6's decay are f32, the projections come out in the parameter dtype, so
+at bf16 the kernel receives f32 d (and Mamba2's f32 b), bf16 c and x, and y
+comes back in x's dtype.
 """
 from __future__ import annotations
 
@@ -107,3 +115,89 @@ def mamba2_decode(p: dict, x, cfg: ArchConfig, h, conv_state):
     y = y.reshape(B, 1, -1) * F.silu(z)
     return y @ p["out_proj"], h_next, tail
 
+
+
+# ================================================================== RWKV6 ==
+_RWKV_LORA = 64
+
+
+def rwkv6_init(gen: torch.Generator, cfg: ArchConfig, stack: int = 0
+               ) -> dict:
+    """Time-mix (r, k, v, g, o; decay lora w0 + tanh(x·w1)·w2; bonus u) and
+    channel-mix (ck, cv) parameters of one RWKV6 layer."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    dt = param_dtype(cfg)
+    pre = (stack,) if stack else ()
+    lora = _RWKV_LORA
+    dev = gen.device
+    sq = lambda name: (name, normal(gen, (*pre, d, d), dt, d ** -0.5))
+    p = dict([("mix", torch.full((*pre, 5, d), 0.5, dtype=dt, device=dev)),
+              sq("wr"), sq("wk"), sq("wv"), sq("wg"), sq("wo")])
+    p["w0"] = torch.full((*pre, d), -4.0, dtype=torch.float32, device=dev)
+    p["w1"] = normal(gen, (*pre, d, lora), dt, d ** -0.5)
+    p["w2"] = normal(gen, (*pre, lora, d), dt, lora ** -0.5)
+    p["u"] = normal(gen, (*pre, d // hd, hd), torch.float32, 0.1)
+    p["cmix"] = torch.full((*pre, d), 0.5, dtype=dt, device=dev)
+    p["ck"] = normal(gen, (*pre, d, cfg.d_ff), dt, d ** -0.5)
+    p["cv"] = normal(gen, (*pre, cfg.d_ff, d), dt, cfg.d_ff ** -0.5)
+    return p
+
+
+def _shift(x, prev):
+    """Token shift: x_{t−1} with the carried boundary.  prev: [B, 1, D]."""
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _time_mix_in(p: dict, x, xs):
+    """r, k, v (in x's dtype), the f32 decay and the SiLU gate from the
+    token and its shifted predecessor, each [B, T, D]."""
+    mix = p["mix"]
+
+    def mixed(i):
+        return x * mix[i][None, None] + xs * (1 - mix[i][None, None])
+
+    w_raw = (p["w0"][None, None].float()
+             + torch.tanh(mixed(3).float() @ p["w1"].float())
+             @ p["w2"].float())
+    return (mixed(0) @ p["wr"], mixed(1) @ p["wk"], mixed(2) @ p["wv"],
+            torch.exp(-torch.exp(w_raw)), F.silu(mixed(4) @ p["wg"]))
+
+
+def rwkv6_time_mix(p: dict, x, cfg: ArchConfig, prev_x=None, h0=None,
+                   chunk: int = 64):
+    """RWKV6 time-mix (the linear-attention half) over a sequence.
+    Returns (y, (hT [B, nh, hd, hd] f32, x_last [B, 1, D]))."""
+    B, T, D = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = D // hd
+    prev = x.new_zeros((B, 1, D)) if prev_x is None else prev_x
+    r, k, v, decay, g = _time_mix_in(p, x, _shift(x, prev))
+    heads = lambda t: t.reshape(B, T, nh, hd).contiguous()
+    y, hT = ops.ssd(heads(decay), heads(k), heads(v), heads(r), u=p["u"],
+                    h0=h0, chunk=min(chunk, T), include_current=False)
+    y = y.reshape(B, T, D) * g
+    return y @ p["wo"], (hT, x[:, -1:])
+
+
+def rwkv6_time_mix_decode(p: dict, x, cfg: ArchConfig, h, prev_x):
+    """One-token time-mix.  h: [B, nh, hd, hd] f32; prev_x: [B, 1, D].
+    Returns (y, h_next, x)."""
+    B, _, D = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = D // hd
+    r, k, v, decay, g = _time_mix_in(p, x, prev_x)
+    heads = lambda t: t.reshape(B, nh, hd)
+    y, h_next = ops.ssd_decode_step(heads(decay), heads(k), heads(v),
+                                    heads(r), u=p["u"], h=h,
+                                    include_current=False)
+    return (y.reshape(B, 1, D) * g) @ p["wo"], h_next, x
+
+
+def rwkv6_channel_mix(p: dict, x, prev_x=None):
+    """RWKV channel-mix (the MLP half) with token shift.  Returns (y,
+    x_last)."""
+    B, T, D = x.shape
+    prev = x.new_zeros((B, 1, D)) if prev_x is None else prev_x
+    xs = _shift(x, prev)
+    xm = x * p["cmix"][None, None] + xs * (1 - p["cmix"][None, None])
+    return torch.square(F.relu(xm @ p["ck"])) @ p["cv"], x[:, -1:]

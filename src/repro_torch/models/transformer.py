@@ -1,22 +1,25 @@
-"""Config-driven model assembly for the dense and hybrid (Zamba2) families.
+"""Config-driven model assembly for every architecture in `configs`.
 
 Port of `repro.models.transformer` for serving: `init_params`, `forward`,
 `init_cache`, `prefill` and `decode_step`.  Parameters keep the reference's
 dict key names and its stacked [L, …] per-layer layout, so weights cross
 over leaf for leaf (`repro_torch.convert.params_from_numpy`); the layer
 stack runs as a Python loop over the stacked tensors (PyTorch runs eagerly:
-no scan is needed).
+no scan is needed).  One code path per family:
 
-  * dense: L blocks of RMS norm → GQA attention → RMS norm → MLP;
-  * hybrid: Mamba2 layers with ONE shared attention + MLP block applied
-    after every full group of ``attn_every`` layers (`_hybrid_group_ids`).
+  * attention families (dense, moe, vlm, audio): L blocks of RMS norm →
+    GQA or MLA attention (full or sliding-window) → RMS norm → MLP or MoE;
+  * ssm (RWKV6): L blocks of RMS norm → time-mix → RMS norm → channel-mix;
+  * hybrid (Zamba2): Mamba2 layers with ONE shared attention + MLP block
+    applied after every full group of ``attn_every`` layers
+    (`_hybrid_group_ids`).
 
-Prefill runs each attention through the flash kernel and each Mamba2 layer
-through the ssd kernel (on a card); decode runs neither (`ops`).  The
-decode cache is updated in place: `decode_step` returns the dict it was
-given.  The other families (RWKV6, MoE, MLA, the sliding-window ring, the
-int8 cache, the stub frontends) raise `NotImplementedError` naming their
-ROADMAP step.
+The vlm / audio frontends are stubs, as in the reference: the entry points
+take integer tokens [B, S] or precomputed embeddings [B, S, D] (decode:
+[B] or [B, D]).  Prefill runs each attention through the flash kernel and
+each Mamba2 / RWKV6 layer through the ssd kernel (on a card); decode runs
+neither (`ops`).  The decode cache is updated in place: `decode_step`
+returns the dict it was given.
 """
 from __future__ import annotations
 
@@ -27,30 +30,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.layers import (mlp_apply, mlp_init, normal,
-                                       param_dtype, rms_norm)
+from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
+                                       moe_init, normal, param_dtype,
+                                       rms_norm)
 
 Params = dict[str, Any]
 Cache = dict[str, Any]
-
-_WAITS = "is not ported yet: ROADMAP queue 1 step 10"
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` for what this port does not serve yet."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"RWKV6 ({cfg.name}) {_WAITS}")
-    if cfg.is_moe or cfg.mla_kv_lora:
-        raise NotImplementedError(f"MoE / MLA ({cfg.name}) {_WAITS}")
-    if cfg.frontend != "token" or cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family} stub frontend "
-                                  f"({cfg.name}) {_WAITS}")
-    if cfg.attn_kind == "swa":
-        raise NotImplementedError(f"the sliding-window ring cache "
-                                  f"({cfg.name}) {_WAITS}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache ({cfg.name}) {_WAITS}")
-
 
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter (sub)tree."""
@@ -63,7 +48,6 @@ def _layer(tree, i: int):
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random parameters with the reference's distributions, drawn on
     ``gen.device`` in the config's dtype."""
-    check_supported(cfg)
     dt = param_dtype(cfg)
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     zeros = lambda *s: torch.zeros(s, dtype=dt, device=gen.device)
@@ -71,7 +55,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
                  "final_norm": zeros(D)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal(gen, (D, V), dt, D ** -0.5)
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":                       # RWKV6: the channel-mix
+        p["blocks"] = {"tm_norm": zeros(L, D),   # lives in "tm" too
+                       "tm": ssm.rwkv6_init(gen, cfg, stack=L),
+                       "cm_norm": zeros(L, D)}
+    elif cfg.family == "hybrid":
         p["blocks"] = {"mamba_norm": zeros(L, D),
                        "mamba": ssm.mamba2_init(gen, cfg, stack=L)}
         p["shared_attn_norm"] = zeros(D)
@@ -81,13 +69,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     else:
         p["blocks"] = {"attn_norm": zeros(L, D),
                        "attn": attn.attn_init(gen, cfg, stack=L),
-                       "mlp_norm": zeros(L, D),
-                       "mlp": mlp_init(gen, cfg, stack=L)}
+                       "mlp_norm": zeros(L, D)}
+        if cfg.is_moe:
+            p["blocks"]["moe"] = moe_init(gen, cfg, stack=L)
+        else:
+            p["blocks"]["mlp"] = mlp_init(gen, cfg, stack=L)
     return p
 
 
-def _embed_in(p: Params, cfg: ArchConfig, tokens):
-    x = p["embed"][tokens]
+def _embed_in(p: Params, cfg: ArchConfig, tokens_or_embeds):
+    """Integer tokens through the embedding table; float inputs are a stub
+    frontend's embeddings, cast to the parameter dtype."""
+    if tokens_or_embeds.is_floating_point():
+        x = tokens_or_embeds.to(param_dtype(cfg))
+    else:
+        x = p["embed"][tokens_or_embeds]
     if cfg.mlp == "geglu":                        # gemma-style √d scaling
         # √d rounded to the activations' dtype first, as the reference
         # does, on the host: a device scalar would cost a copy and a sync
@@ -119,71 +115,103 @@ def _shared_block(p: Params, cfg: ArchConfig, x, positions):
     return x + mlp_apply(p["shared_mlp"], h, cfg.mlp), kv
 
 
-def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool):
-    """Embedding and layer stack: (final hidden [B, S, D], cache or None).
+def _attn_block(bp: Params, cfg: ArchConfig, x, positions):
+    """Norm → GQA / MLA attention → norm → MLP / MoE.  Returns (x, the
+    layer's cache entries, MoE aux or None)."""
+    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    fwd = attn.mla_forward if cfg.mla_kv_lora else attn.gqa_forward
+    a, kv = fwd(bp["attn"], h, cfg, positions)
+    x = x + a
+    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+    if "moe" in bp:
+        m, aux = moe_apply(bp["moe"], h, cfg)
+    else:
+        m, aux = mlp_apply(bp["mlp"], h, cfg.mlp), None
+    return x + m, kv, aux
 
-    The cache has the reference's layout: dense (k, v) stacked [L, …];
-    hybrid {"mamba": (h [L, …], conv tails [L, …]), "attn": (k, v)
-    stacked over the shared block's applications}.
+
+def _rwkv_block(bp: Params, cfg: ArchConfig, x):
+    h = rms_norm(x, bp["tm_norm"], cfg.norm_eps)
+    y, (hT, x_last_t) = ssm.rwkv6_time_mix(bp["tm"], h, cfg)
+    x = x + y
+    h = rms_norm(x, bp["cm_norm"], cfg.norm_eps)
+    y, x_last_c = ssm.rwkv6_channel_mix(bp["tm"], h)
+    return x + y, (hT, x_last_t, x_last_c)
+
+
+def _stack(states: list) -> tuple:
+    """Per-layer tuples of tensors → a tuple of [L, …] stacks."""
+    return tuple(torch.stack(leaf) for leaf in zip(*states))
+
+
+def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool):
+    """Embedding and layer stack: (final hidden [B, S, D], cache or None,
+    summed MoE aux loss).
+
+    The cache has the reference's layout: attention families (k, v) or
+    MLA's (c, k_rope), stacked [L, …]; ssm (h, prev_t, prev_c) stacked;
+    hybrid {"mamba": (h [L, …], conv tails [L, …]), "attn": (k, v) stacked
+    over the shared block's applications}.
     """
-    check_supported(cfg)
     x = _embed_in(p, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     blocks = p["blocks"]
-    kvs, hs, tails = [], [], []
+    states, mamba = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         off = 0
         for gs in _hybrid_group_ids(cfg):
             for i in range(off, off + gs):
                 h = rms_norm(x, blocks["mamba_norm"][i], cfg.norm_eps)
-                y, (hT, tail) = ssm.mamba2_forward(
-                    _layer(blocks["mamba"], i), h, cfg)
+                y, st = ssm.mamba2_forward(_layer(blocks["mamba"], i), h,
+                                           cfg)
                 x = x + y
                 if collect_cache:
-                    hs.append(hT)
-                    tails.append(tail)
+                    mamba.append(st)
             off += gs
             if gs == cfg.attn_every:
                 x, kv = _shared_block(p, cfg, x, positions)
                 if collect_cache:
-                    kvs.append(kv)
+                    states.append(kv)
         if not collect_cache:
-            return x, None
-        return x, {"mamba": (torch.stack(hs), torch.stack(tails)),
-                   "attn": (torch.stack([k for k, _ in kvs]),
-                            torch.stack([v for _, v in kvs]))}
+            return x, None, aux
+        return x, {"mamba": _stack(mamba), "attn": _stack(states)}, aux
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
-        h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        a, kv = attn.gqa_forward(bp["attn"], h, cfg, positions)
-        x = x + a
-        h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_apply(bp["mlp"], h, cfg.mlp)
+        if cfg.family == "ssm":
+            x, st = _rwkv_block(bp, cfg, x)
+        else:
+            x, st, a = _attn_block(bp, cfg, x, positions)
+            if a is not None:
+                aux = aux + a
         if collect_cache:
-            kvs.append(kv)
-    if not collect_cache:
-        return x, None
-    return x, (torch.stack([k for k, _ in kvs]),
-               torch.stack([v for _, v in kvs]))
+            states.append(st)
+    return x, _stack(states) if collect_cache else None, aux
 
 
 def forward(p: Params, cfg: ArchConfig, tokens, *, collect_cache=False):
-    """Full-sequence forward.  tokens: [B, S] ints.
+    """Full-sequence forward.  tokens: [B, S] ints or [B, S, D] stub
+    embeddings.
 
-    Returns (logits [B, S, V] f32, {"cache": …}) as the reference.
+    Returns (logits [B, S, V] f32, {"moe_aux", "cache"}) as the reference.
     """
-    x, cache = _trunk(p, cfg, tokens, collect_cache)
-    return _logits(p, cfg, x), {"cache": cache}
+    x, cache, aux = _trunk(p, cfg, tokens, collect_cache)
+    return _logits(p, cfg, x), {"moe_aux": aux, "cache": cache}
 
 
 # ================================================================ cache ==
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> Cache:
-    check_supported(cfg)
+    """The empty decode cache, laid out as the reference's."""
     dt = param_dtype(cfg)
     L, D = cfg.n_layers, cfg.d_model
     z = lambda *s, dtype=dt: torch.zeros(s, dtype=dtype, device=device)
+    unfilled = lambda *s: torch.full(s, -1, dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        hd = cfg.rwkv_head_dim
+        return {"h": z(L, batch, D // hd, hd, hd, dtype=torch.float32),
+                "prev_t": z(L, batch, 1, D), "prev_c": z(L, batch, 1, D)}
     if cfg.family == "hybrid":
         di = 2 * D
         n_apps = sum(1 for g in _hybrid_group_ids(cfg)
@@ -192,28 +220,41 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         return {"h": z(L, batch, cfg.ssm_heads, cfg.ssm_state,
                        di // cfg.ssm_heads, dtype=torch.float32),
                 "conv": z(L, batch, 3, di), "k": z(*kv), "v": z(*kv),
-                "pos": torch.full((n_apps, batch, max_seq), -1,
-                                  dtype=torch.int32, device=device)}
-    kv = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": z(*kv), "v": z(*kv),
-            "pos": torch.full((L, batch, max_seq), -1, dtype=torch.int32,
-                              device=device)}
+                "pos": unfilled(n_apps, batch, max_seq)}
+    if cfg.mla_kv_lora:
+        return {"c": z(L, batch, max_seq, cfg.mla_kv_lora),
+                "kr": z(L, batch, max_seq, cfg.mla_rope_dim)}
+    w = min(max_seq, cfg.window) if cfg.attn_kind == "swa" else max_seq
+    kv = (L, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sc = (L, batch, w, cfg.n_kv_heads, 1)
+        return {"k": z(*kv, dtype=torch.int8), "v": z(*kv, dtype=torch.int8),
+                "ks": z(*sc, dtype=torch.float16),
+                "vs": z(*sc, dtype=torch.float16),
+                "pos": unfilled(L, batch, w)}
+    return {"k": z(*kv), "v": z(*kv), "pos": unfilled(L, batch, w)}
 
 
 def _fill_kv(cache: Cache, k, v, S: int) -> Cache:
     """Write the prompt's keys and values into the cache (the trailing
-    window, ring-aligned, when the prompt fills it)."""
+    window, ring-aligned so position p sits in slot p % w, when the prompt
+    fills it); an int8 cache takes them quantised, its scales laid out
+    alongside."""
     w = cache["k"].shape[2]
+    leaves = {"k": k, "v": v}
+    if "ks" in cache:
+        leaves["k"], leaves["ks"] = attn.quantize_kv(k)
+        leaves["v"], leaves["vs"] = attn.quantize_kv(v)
     if S >= w:
         shift = S % w
+        for name, t in leaves.items():
+            cache[name] = torch.roll(t[:, :, S - w:], shift, 2).contiguous()
         pos = torch.arange(S - w, S, dtype=torch.int32, device=k.device)
-        cache["k"] = torch.roll(k[:, :, S - w:], shift, 2).contiguous()
-        cache["v"] = torch.roll(v[:, :, S - w:], shift, 2).contiguous()
         cache["pos"] = torch.roll(pos, shift, 0).expand_as(
             cache["pos"]).contiguous()
     else:
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
+        for name, t in leaves.items():
+            cache[name][:, :, :S] = t
         cache["pos"][:, :, :S] = torch.arange(S, dtype=torch.int32,
                                               device=k.device)
     return cache
@@ -229,35 +270,59 @@ def prefill(p: Params, cfg: ArchConfig, tokens, max_seq: int):
     vocabulary the whole [B, S, V] f32 tensor would take gigabytes.
     """
     B, S = tokens.shape[:2]
-    x, fc = _trunk(p, cfg, tokens, collect_cache=True)
+    x, fc, _ = _trunk(p, cfg, tokens, collect_cache=True)
     last = _logits(p, cfg, x[:, -1:])[:, 0]
+    if cfg.family == "ssm":
+        return last, dict(zip(("h", "prev_t", "prev_c"), fc)), S
     cache = init_cache(cfg, B, max_seq, device=x.device)
+    if cfg.mla_kv_lora:
+        cache["c"][:, :, :S], cache["kr"][:, :, :S] = fc
+        return last, cache, S
     if cfg.family == "hybrid":
         cache["h"], cache["conv"] = fc["mamba"]
-        k, v = fc["attn"]
-    else:
-        k, v = fc
-    return last, _fill_kv(cache, k, v, S), S
+        fc = fc["attn"]
+    return last, _fill_kv(cache, *fc, S), S
 
 
 # ================================================================ decode ==
 def decode_step(p: Params, cfg: ArchConfig, cache: Cache, token, pos: int):
-    """One decode step.  token: [B] ints; pos: the absolute position (a
-    Python int).  Returns (logits [B, V] f32, cache), the cache updated in
-    place."""
-    check_supported(cfg)
+    """One decode step.  token: [B] ints or [B, D] stub embeddings; pos:
+    the absolute position (a Python int).  Returns (logits [B, V] f32,
+    cache), the cache updated in place."""
     x = _embed_in(p, cfg, token[:, None])           # [B, 1, D]
     blocks = p["blocks"]
     if cfg.family == "hybrid":
         return _hybrid_decode(p, cfg, cache, x, pos)
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
+        if cfg.family == "ssm":
+            h = rms_norm(x, bp["tm_norm"], cfg.norm_eps)
+            y, h2, pt = ssm.rwkv6_time_mix_decode(
+                bp["tm"], h, cfg, cache["h"][i], cache["prev_t"][i])
+            x = x + y
+            h = rms_norm(x, bp["cm_norm"], cfg.norm_eps)
+            # the channel-mix reads the "tm" subtree, as the reference
+            y, pc = ssm.rwkv6_channel_mix(bp["tm"], h, cache["prev_c"][i])
+            cache["h"][i], cache["prev_t"][i], cache["prev_c"][i] = h2, pt, pc
+            x = x + y
+            continue
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        a, *_ = attn.gqa_decode(bp["attn"], h, cfg, cache["k"][i],
-                                cache["v"][i], cache["pos"][i], pos)
+        if cfg.mla_kv_lora:
+            a, *_ = attn.mla_decode(bp["attn"], h, cfg, cache["c"][i],
+                                    cache["kr"][i], pos)
+        else:
+            scales = ({"k": cache["ks"][i], "v": cache["vs"][i]}
+                      if cfg.kv_cache_dtype == "int8" else None)
+            a, *_ = attn.gqa_decode(bp["attn"], h, cfg, cache["k"][i],
+                                    cache["v"][i], cache["pos"][i], pos,
+                                    kv_scales=scales)
         x = x + a
         h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_apply(bp["mlp"], h, cfg.mlp)
+        if "moe" in bp:
+            m, _ = moe_apply(bp["moe"], h, cfg)
+        else:
+            m = mlp_apply(bp["mlp"], h, cfg.mlp)
+        x = x + m
     return _logits(p, cfg, x)[:, 0], cache
 
 

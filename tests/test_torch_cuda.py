@@ -700,11 +700,35 @@ def test_cuda_flash_other_inputs_take_the_cuda_core_route(cuda, q_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_mla_head_dims_take_the_cuda_core_route(cuda, dtype,
+                                                          causal):
+    """MLA's q/k head dim 192 with v head dim 128 and its explicit scale:
+    one launch on the CUDA-core route, within the reference's bound."""
+    g = torch.Generator().manual_seed(192)
+    q, k = (torch.randn((2, 300, 8, 192), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.randn((2, 300, 8, 128), generator=g).to(cuda, dtype)
+    before = dict(tfa.flash_attention.launches_by_route)
+    out = tfa.flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches_by_route["cuda_core"] == \
+        before["cuda_core"] + 1
+    assert out.shape == (2, 300, 8, 128) and out.dtype == dtype
+    ref = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                        scale=192 ** -0.5)
+    np.testing.assert_allclose(np_(out.float()), np_(ref.float()),
+                               atol=FLASH_ATOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,N,P,inc,use_u,use_h0,mixed", [
     (1, 7, 2, 6, 6, True, True, True, False),     # element-wise staging
     (1, 96, 3, 20, 36, False, True, True, True),
     (1, 64, 2, 64, 128, True, True, True, True),
     (8, 1024, 112, 64, 64, True, False, False, True),  # Zamba2-7B prefill
+    (8, 1024, 32, 64, 64, False, True, False, True),   # RWKV6-1.6B prefill
 ])
 def test_cuda_ssd_staging_paths_match_plain_version(cuda, B, T, H, N, P, inc,
                                                     use_u, use_h0, mixed):
@@ -747,11 +771,13 @@ def test_cuda_kernel_wrappers_raise_on_wrong_device_or_dtype(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma-2b", "rwkv6-1.6b",
+                                  "mixtral-8x7b", "deepseek-v2-236b",
+                                  "chameleon-34b", "musicgen-large"])
 def test_cuda_models_launch_kernels_in_prefill_only(cuda, arch):
-    """A reduced model on the card: one ssd launch per Mamba2 layer and one
-    flash launch per attention application in prefill, none in decode; its
-    logits equal the CPU's (plain versions) within 1e-4."""
+    """A reduced model on the card: one ssd launch per Mamba2 / RWKV6 layer
+    and one flash launch per attention application in prefill, none in
+    decode; its logits equal the CPU's (plain versions) within 1e-4."""
     cfg = reduced(get_arch(arch))
     params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
     toks = torch.randint(2, cfg.vocab_size, (2, 64),
@@ -763,8 +789,8 @@ def test_cuda_models_launch_kernels_in_prefill_only(cuda, arch):
     gp = to(params)
     n_attn = (sum(1 for gs in ttf._hybrid_group_ids(cfg)
                   if gs == cfg.attn_every) if cfg.family == "hybrid"
-              else cfg.n_layers)
-    n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
+              else 0 if cfg.family == "ssm" else cfg.n_layers)
+    n_ssd = cfg.n_layers if cfg.family in ("hybrid", "ssm") else 0
     f0, s0 = tfa.flash_attention.launches, tsm.ssd.launches
     last, cache, _ = ttf.prefill(gp, cfg, toks.to(cuda), 80)
     torch.cuda.synchronize()

@@ -241,7 +241,7 @@ def test_serve_stream_runs_on_cpu_and_backends_agree():
 
 
 @pytest.mark.parametrize("flags,step", [
-    (["--stream", "--distributed"], 9), (["--arch", "rwkv6-1.6b"], 10)])
+    (["--stream", "--distributed"], 9)])
 def test_serve_unported_paths_exit_nonzero(flags, step):
     with pytest.raises(SystemExit) as exc:
         serve.main(flags + ["--device", "cpu"])

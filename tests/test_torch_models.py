@@ -9,6 +9,8 @@ residual stream grows through its layers, so its cached keys and values
 reach magnitudes where an absolute 1e-5 alone is a few ulp); decode vs the
 full forward inside the port 2e-4, the reference test's bound.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -34,7 +36,12 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
 
+ALL = ["gemma-7b", "gemma-2b", "granite-34b", "granite-3-2b", "zamba2-7b",
+       "mixtral-8x7b", "deepseek-v2-236b", "rwkv6-1.6b", "chameleon-34b",
+       "musicgen-large"]
 ARCHS = ["zamba2-7b", "gemma-2b"]
+KV_ARCHS = [a for a in ALL if get_arch(a).family != "ssm"
+            and not get_arch(a).mla_kv_lora]
 KEY = jax.random.PRNGKey(0)
 
 
@@ -50,6 +57,22 @@ def _x(shape, seed=0, scale=1.0):
 def _close(got, want, atol=1e-5, **kw):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), atol=atol, **kw)
+
+
+def _close_cache(cfg, tc, rc):
+    """Cache leaves at torch_parity.TOL.  RWKV6's state h is a
+    decay-weighted sum of k⊗v over the prompt, so an element near zero is
+    a cancellation of terms of the leaf's full size: its absolute bound is
+    TOL's atol times the leaf's largest magnitude (XLA's and PyTorch's CPU
+    tanh and exp differ in the last ulp, and the sum carries that ulp of
+    its largest terms)."""
+    assert set(tc) == set(rc)
+    for k in rc:
+        want = np.asarray(rc[k], np.float32)
+        scale = (max(1.0, float(np.abs(want).max()))
+                 if cfg.family == "ssm" and k == "h" else 1.0)
+        _close(tc[k], want, rtol=TOL["rtol"], atol=TOL["atol"] * scale,
+               err_msg=k)
 
 
 # ----------------------------------------------------------------- layers --
@@ -131,11 +154,16 @@ def test_softplus_has_no_identity_switch():
 
 
 # ------------------------------------------------------------ whole model --
-@pytest.fixture(scope="module", params=ARCHS)
-def model(request):
-    rcfg, cfg = _cfgs(request.param)
+@functools.lru_cache(maxsize=None)
+def _model(arch):
+    rcfg, cfg = _cfgs(arch)
     rp = rtf.init_params(KEY, rcfg)
     return rcfg, cfg, rp, params_from_numpy(cfg, jax.device_get(rp), "cpu")
+
+
+@pytest.fixture(scope="module", params=ALL)
+def model(request):
+    return _model(request.param)
 
 
 def test_forward_prefill_decode_match_reference(model):
@@ -143,18 +171,17 @@ def test_forward_prefill_decode_match_reference(model):
     toks = np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 64)
                                              ).astype(np.int32)
     jt, tt = jnp.asarray(toks), torch.from_numpy(toks).long()
-    rl, _ = rtf.forward(rp, rcfg, jt)
-    tl, _ = ttf.forward(tp, cfg, tt)
+    rl, raux = rtf.forward(rp, rcfg, jt)
+    tl, taux = ttf.forward(tp, cfg, tt)
     assert tl.dtype == torch.float32 and tl.shape == (2, 64, cfg.vocab_size)
     _close(tl, rl, atol=1e-4)
+    _close(taux["moe_aux"], raux["moe_aux"])
 
     rlast, rc, rpos = rtf.prefill(rp, rcfg, jt, 96)
     tlast, tc, tpos = ttf.prefill(tp, cfg, tt, 96)
     assert tpos == int(rpos) == 64
     _close(tlast, rlast, atol=1e-4)
-    assert set(tc) == set(rc)
-    for k in rc:
-        _close(tc[k], rc[k], **TOL)
+    _close_cache(cfg, tc, rc)
 
     # a decode step from the REFERENCE's cache, carried over leaf for leaf
     nxt = toks[:, 0]
@@ -163,14 +190,16 @@ def test_forward_prefill_decode_match_reference(model):
     tlg, tc2 = ttf.decode_step(tp, cfg, tc_ref, torch.from_numpy(nxt).long(),
                                64)
     _close(tlg, rlg, atol=1e-4)
-    for k in rc2:
-        _close(tc2[k], rc2[k], **TOL)
+    _close_cache(cfg, tc2, rc2)
 
 
-def test_prefill_into_a_shorter_cache_keeps_the_trailing_window(model):
+@pytest.mark.parametrize("arch", KV_ARCHS)
+def test_prefill_into_a_shorter_cache_keeps_the_trailing_window(arch):
     """A prompt longer than the cache: the last max_seq keys, ring-aligned
-    (slot = position % max_seq), as the reference lays them out."""
-    rcfg, cfg, rp, tp = model
+    (slot = position % max_seq), as the reference lays them out.  Run where
+    the cache holds keys, values and positions (not RWKV6's state, nor
+    MLA's latent cache)."""
+    rcfg, cfg, rp, tp = _model(arch)
     toks = np.random.default_rng(2).integers(2, cfg.vocab_size, (1, 40)
                                              ).astype(np.int32)
     _, rc, _ = rtf.prefill(rp, rcfg, jnp.asarray(toks), 24)
@@ -189,15 +218,6 @@ def test_decode_matches_forward_inside_the_port(model):
     assert float((lg[0] - full[0, -1]).abs().max()) < 2e-4
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "mixtral-8x7b",
-                                  "deepseek-v2-236b", "chameleon-34b",
-                                  "musicgen-large"])
-def test_unported_families_raise(arch):
-    cfg = reduced(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 10"):
-        ttf.init_params(torch.Generator().manual_seed(0), cfg)
-
-
 def test_params_from_numpy_checks_keys():
     rcfg, cfg = _cfgs("gemma-2b")
     tree = jax.device_get(rtf.init_params(KEY, rcfg))
@@ -209,20 +229,27 @@ def test_params_from_numpy_checks_keys():
 def test_port_init_draws_the_reference_distributions():
     """The port draws its own weights (a torch generator): same shapes,
     dtypes and constants as the reference's, scales within sampling
-    error."""
-    rcfg, cfg = _cfgs("zamba2-7b")
-    ref = jax.device_get(rtf.init_params(KEY, rcfg))
-    port = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+    error — for every family (hybrid, RWKV6, MoE with the sliding window,
+    MoE with MLA and shared experts, the two stub-frontend backbones).
+    Constant leaves (norms, Mamba2's a_log / dt_bias / d_skip, RWKV6's mix,
+    cmix and w0) are compared as constants, not by their spread."""
     flat = lambda t, pre="": (
         {k2: v2 for k, v in t.items() for k2, v2 in
          flat(v, pre + k + "/").items()} if isinstance(t, dict)
         else {pre[:-1]: t})
-    fr, fp = flat(ref), flat(port)
-    assert fr.keys() == fp.keys()
-    for k in fr:
-        assert tuple(fp[k].shape) == fr[k].shape, k
-        a, b = np.asarray(fr[k], np.float64), fp[k].double().numpy()
-        if k.endswith(("a_log", "dt_bias", "d_skip", "norm")):
-            np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=k)
-        else:
-            assert abs(b.std() / a.std() - 1) < 0.1, k
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "mixtral-8x7b",
+                 "deepseek-v2-236b", "chameleon-34b", "musicgen-large"):
+        rcfg, cfg = _cfgs(arch)
+        fr = flat(jax.device_get(rtf.init_params(KEY, rcfg)))
+        fp = flat(ttf.init_params(torch.Generator().manual_seed(0), cfg))
+        assert fr.keys() == fp.keys(), arch
+        for k in fr:
+            where = f"{arch} {k}"
+            assert tuple(fp[k].shape) == fr[k].shape, where
+            assert str(fp[k].dtype) == f"torch.{fr[k].dtype}", where
+            a, b = np.asarray(fr[k], np.float64), fp[k].double().numpy()
+            if k.endswith(("a_log", "dt_bias", "d_skip", "norm", "mix",
+                           "w0")):
+                np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=where)
+            else:
+                assert abs(b.std() / a.std() - 1) < 0.1, where
