@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card's name and power limit (nvidia-smi) and builds the
-         seven kernel sources of the checkout, one nvcc each, in parallel.
+         eight kernel sources of the checkout, one nvcc each, in parallel.
 Phase A  the `fleet_step` CUDA kernel against its plain PyTorch version
          (`fleet_step_reference`) on the card at 1 tile × 4,096 packages
          (serve --stream's shape: no Γ), 4 tiles × 200 and 47 tiles × 64,
@@ -182,6 +182,39 @@ Phase K  every model family of configs/ served.  (a) The serving
          Gemma-2B with kv_cache_dtype="int8" decode vs forward within 0.05
          relative, the cache still int8.
 
+Phase L  training (PR 20).  (a) `flash_attention_stats` (each route's
+         forward with its f32 output and row statistics) against the plain
+         statistics, its output bit-equal to the serving launch's, and the
+         backward kernel (flash_attention_bwd.cu) against the plain backward
+         (`make_flash`'s bwd) on the plain residuals — gradients within
+         1e-5 (f32) and 5e-3 (bf16) of each one's largest magnitude, the
+         same bits on two launches — at Gemma-2B's training shape [8, 1,024,
+         8 on 1, 256] bf16, the 100M example's [8, 256, 10 on 5, 64] f32,
+         Zamba2-7B's [8, 1,024, 32, 112], MLA's [2, 1,024, 128, 192 / 128],
+         a window, a ragged T, rows a window empties and f32 at d 256; timed
+         at Gemma's shape beside its bound, the plain backward and
+         scaled_dot_product_attention's backward (enable_gqa; library_ms, a
+         yardstick only).  (b) Gemma-2B at full width and depth in bf16:
+         loss and gradients on the kernels (36 forward launches on the
+         tensor-core route, 18 backward) against FlashAttention on its
+         plain branches (no launch), the loss within 1e-3 and each
+         gradient leaf within 5e-2 of its largest magnitude (bf16 P in the
+         tensor-core forward and bf16 activations through 18 layers and
+         their recompute).  (c) The same in f32 at 2 layers (the CUDA-core
+         route): each leaf within 1e-4.  (d) `repro_torch.launch.train
+         --arch gemma-2b --batch 8 --seq 1024 --steps 6` in process:
+         finite losses, exactly 36 forward and 18 backward launches a
+         step, the warm step time, tok/s, peak device memory, and a
+         profiled warm step (device time by group: flash forward, flash
+         backward, GEMM, the rest; the AdamW update's span; idle share);
+         then checkpoint and auto-resume through the same driver at full
+         width with the depth cut to CKPT_LAYERS (a full-depth train state
+         is 30 GB a checkpoint): --steps 6 --ckpt-every 3, then --steps 8,
+         the restored state bit-equal to the saved one (steps 3, 5, then
+         6, 7; the three newest kept).  (e)
+         examples/torch_train_100m.py on the card (f32, the CUDA-core
+         route forward and backward): exact launches, the loss falls.
+
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -214,7 +247,7 @@ SHFL_LATENCY_CYCLES = 24
 GRID_CHAIN_FP32_OPS = 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
-           "flash_attention_tc", "ssd", "fma_f32")
+           "flash_attention_tc", "ssd", "fma_f32", "flash_attention_bwd")
 # full-width (tiles, steps) of the thermal kernels' main paths: the paper's
 # 90k-step dataset length at thermal_conv's datacenter width (N = 512, the
 # reference kernel's stated O(512)) and at the 47-tile Ponte-Vecchio grid
@@ -642,6 +675,7 @@ def main() -> None:
     phase_h(dev, fa_entry, ssd_entry)
     phase_k(dev, fa_entry, ssd_entry)
     fma_entry = phase_j(dev)
+    fb_entry = phase_l(dev)
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -658,7 +692,7 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         **mc_entry,
-    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry]}))
+    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, fb_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2666,6 +2700,419 @@ def phase_j(dev) -> dict:
             "bound_by": fma_by, "library_ms": None,
             "service_fleet_step_launches": svc_launches["fleet_step"],
             "service_tick_ms": med}
+
+
+# Phase L: the training slice.  The backward kernel's cases (what, B, Tq,
+# Tk, H, KV, d, dv, dtype name, causal, window, q_offset); the bounds on
+# its gradients as a share of each gradient's largest magnitude (the
+# first chip run measured at most 9.5e-7 in f32 and 2.3e-3 in bf16); the
+# train step's bounds kernels vs plain versions (probe: 1.7e-2 per bf16
+# leaf, loss 2e-5 relative); the driver's arguments; the depth of the
+# checkpoint-and-resume run
+FLASH_BWD_CASES = (
+    ("Gemma-2B training", 8, 1024, 1024, 8, 1, 256, 256, "bfloat16", True,
+     0, 0),
+    ("the 100M example", 8, 256, 256, 10, 5, 64, 64, "float32", True, 0, 0),
+    ("Zamba2-7B", 8, 1024, 1024, 32, 32, 112, 112, "bfloat16", True, 0, 0),
+    ("MLA", 2, 1024, 1024, 128, 128, 192, 128, "bfloat16", True, 0, 0),
+    ("window 128", 2, 600, 600, 4, 2, 64, 64, "bfloat16", True, 128, 0),
+    ("ragged T=1000", 2, 1000, 1000, 4, 2, 112, 112, "bfloat16", True, 0, 0),
+    ("window empties rows", 1, 100, 300, 4, 1, 128, 128, "bfloat16", True,
+     64, 400),
+    ("f32 d 256 window", 2, 200, 200, 4, 2, 256, 256, "float32", True, 96,
+     0),
+    ("f32 not causal, q_offset", 1, 130, 257, 4, 2, 48, 40, "float32",
+     False, 0, 64))
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+TRAIN_BF16_TOL = 5e-2
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_F32_TOL = 1e-4
+TRAIN_ARGV = ["--arch", "gemma-2b", "--batch", "8", "--seq", "1024",
+              "--log-every", "1"]
+TRAIN_STEPS = 6
+CKPT_LAYERS = 1
+EXAMPLE_ARGV = ["--steps", "40"]
+
+
+@contextlib.contextmanager
+def plain_flash_grads():
+    """`FlashAttention` kept, its two kernel branches on the card swapped
+    for the plain versions (`flash_attention_stats_reference`,
+    `flash_attention_backward_reference`): the train step's plain run."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = fa.flash_attention_stats, fa.flash_attention_backward
+
+    def stats(q, k, v, **kw):
+        o, m, l = fa.flash_attention_stats_reference(q, k, v, **kw)
+        return o.to(q.dtype), o, m, l
+
+    def backward(q, k, v, o, m, l, do, **kw):
+        return fa.flash_attention_backward_reference(q, k, v, o, m, l,
+                                                     do.contiguous(), **kw)
+    fa.flash_attention_stats, fa.flash_attention_backward = stats, backward
+    try:
+        yield
+    finally:
+        fa.flash_attention_stats, fa.flash_attention_backward = saved
+
+
+def grads_vs_plain(params, cfg, toks, labs, where: str, bound: float,
+                   route: str) -> tuple[float, float]:
+    """Loss and gradients of ``params`` on the kernels (exactly 2 forward
+    launches on ``route`` and 1 backward a layer) against the same call
+    with FlashAttention on its plain branches (no launch): the loss within
+    TRAIN_LOSS_TOL relative, each gradient leaf within ``bound`` of its
+    largest magnitude.  Returns (loss, worst leaf share)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as S
+
+    L = cfg.n_layers
+    fa.reset_launches()
+    loss, _, g_k = S.loss_and_grads(params, cfg, toks, labs)
+    torch.cuda.synchronize()
+    routes = dict(fa.flash_attention.launches_by_route)
+    check(routes[route] == 2 * L and fa.flash_attention.launches == 2 * L
+          and fa.flash_attention_backward.launches == L,
+          f"{where}: forward launches {routes}, backward "
+          f"{fa.flash_attention_backward.launches}; want {2 * L} on the "
+          f"{route} route and {L}")
+    with plain_flash_grads():
+        loss_p, _, g_p = S.loss_and_grads(params, cfg, toks, labs)
+    torch.cuda.synchronize()
+    check(fa.flash_attention.launches == 2 * L
+          and fa.flash_attention_backward.launches == L,
+          f"{where}: the plain run launched a kernel")
+    lk, lp = float(loss), float(loss_p)
+    check(np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp),
+          f"{where}: loss {lk} on the kernels, {lp} on the plain versions")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        a, b = a.float(), b.float()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(np.isfinite(rel) and rel <= bound, f"{where}: gradient leaf "
+              f"{i} {list(a.shape)} differs by {rel:.3e} of its largest "
+              f"magnitude (bound {bound})")
+        worst = max(worst, rel)
+    print(f"[phaseL] {where}: loss {lk:.6f} on the kernels, {lp:.6f} on the "
+          f"plain versions; {2 * L} forward launches ({route}) and {L} "
+          f"backward, none in the plain run; the {len(g_k)} gradient "
+          f"leaves within {worst:.3e} of their largest magnitude (bound "
+          f"{bound})")
+    return lk, worst
+
+
+def train_batch(dev, cfg, seed: int):
+    """Random (tokens, labels) at TRAIN_ARGV's batch and sequence length,
+    token ids below 32,768 (the data pipeline's range)."""
+    import torch
+
+    arg = lambda k: int(TRAIN_ARGV[TRAIN_ARGV.index(k) + 1])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hi = min(32768, cfg.vocab_size)
+    shape = (arg("--batch"), arg("--seq"))
+    return (torch.randint(2, hi, shape, generator=g, device=dev),
+            torch.randint(2, hi, shape, generator=g, device=dev))
+
+
+def profile_train_step(dev, cfg, state, n_tiles: int) -> None:
+    """Where one warm train step spends the card's time: device time by
+    group (torch.profiler, CUDA activity) against the host clock, the
+    AdamW update's span (its `record_function` range on the device) and
+    the idle share.  The flash groups must hold exactly 2 × layers forward
+    and 3 × layers backward kernel runs (three kernels a backward call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as S
+
+    toks, labs = train_batch(dev, cfg, 5)
+    batch = {"tokens": toks, "labels": labs,
+             "rho": torch.full((n_tiles,), 1.9, device=dev)}
+    step = S.make_train_step(cfg, n_tiles, device=dev)
+    state, _ = step(state, batch)                        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = (("flash forward", ("flash_tc_kernel", "flash_kernel")),
+              ("flash backward", ("dkdv_kernel", "dq_kernel",
+                                  "delta_kernel")),
+              ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")))
+    ranges = ("loss_and_grads", "adamw_update")
+    by = {k: 0.0 for k, _ in groups} | {"other": 0.0}
+    runs = {k: 0 for k, _ in groups} | {"other": 0}
+    span, other = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if e.key in ranges:
+            span[e.key] = ms
+            continue
+        k = next((k for k, keys in groups
+                  if any(x in e.key.lower() for x in keys)), "other")
+        by[k] += ms
+        runs[k] += e.count
+        if k == "other":
+            other[e.key[:50]] = other.get(e.key[:50], 0.0) + ms
+    busy = sum(by.values())
+    L = cfg.n_layers
+    check(busy == 0.0 or (runs["flash forward"] == 2 * L
+                          and runs["flash backward"] == 3 * L),
+          f"profiled train step: {runs['flash forward']} flash forward and "
+          f"{runs['flash backward']} backward kernel runs, want {2 * L} and "
+          f"{3 * L}")
+    if busy == 0.0:
+        print(f"[phaseL] profiled train step: the profiler recorded no "
+              f"device time (breakdown not measured); host clock "
+              f"{wall:.1f} ms")
+        return
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[phaseL] {cfg.name} train step ({cfg.dtype}, batch "
+          f"{list(toks.shape)}; torch.profiler): host clock {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {1 - busy / wall:.3f}); by group (ms): "
+          + json.dumps({k: round(v, 3) for k, v in by.items()})
+          + "; the AdamW update's span on the device "
+          f"{span.get('adamw_update', float('nan')):.3f} ms; largest other: "
+          + json.dumps({k: round(v, 3) for k, v in top}))
+
+
+def phase_l(dev) -> dict:
+    """Training: the backward kernel, Gemma-2B's gradients on the kernels
+    vs the plain versions, the train driver with checkpoint and resume,
+    and the 100M example."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    fwd_tol = {"float32": dict(atol=2e-5), "bfloat16": dict(atol=2e-2)}
+
+    # ---- (a) the statistics output and the backward kernel
+    worst_abs, worst_rel = 0.0, {"float32": 0.0, "bfloat16": 0.0}
+    timing = None
+    for what, B, Tq, Tk, H, KV, d, dv, dt, causal, w, off in \
+            FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        q, k, v, do = r(B, Tq, H, d), r(B, Tk, KV, d), r(B, Tk, KV, dv), \
+            r(B, Tq, H, dv)
+        kw = dict(causal=causal, window=w, q_offset=off)
+        route = fa.flash_route("cuda", dtype, dtype, d, dv)
+        before = fa.flash_attention.launches_by_route[route]
+        out, o, m, l = fa.flash_attention_stats(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches_by_route[route] == before + 1,
+              f"phase L {what}: statistics forward not on the {route} route")
+        check(torch.equal(out, fa.flash_attention(q, k, v, **kw)),
+              f"phase L {what}: the statistics launch changes the output")
+        po, pm, pl = fa.flash_attention_stats_reference(q, k, v, **kw)
+        e_o = max_err((o,), (po,), f"phase L {what} o_f32", rtol=0.0,
+                      **fwd_tol[dt])
+        empty = pm <= -1e29
+        check(torch.equal(empty, m <= -1e29), f"phase L {what}: rows "
+              f"without keys differ ({int(empty.sum())} plain)")
+        e_m = float(((m - pm).abs() / pm.abs().clamp(min=1.0)).max())
+        e_l = float(((l - pl).abs() / pl).max())
+        check(e_m <= 1e-5 and e_l <= 1e-5, f"phase L {what}: statistics "
+              f"m {e_m:.3e}, l {e_l:.3e} from the plain ones (bound 1e-5)")
+        g1 = fa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
+        g2 = fa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+              f"phase L {what}: two backward launches differ")
+        gp = fa.flash_attention_backward_reference(q, k, v, po, pm, pl, do,
+                                                   **kw)
+        rels = []
+        for name, a, b in zip(("dq", "dk", "dv"), g1, gp):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"phase L {what}: {name} "
+                  f"not finite")
+            diff = float((a - b).abs().max())
+            rel = diff / max(float(b.abs().max()), 1e-30)
+            check(rel <= FLASH_BWD_TOL[dt], f"phase L {what}: {name} differs "
+                  f"from the plain backward by {rel:.3e} of its largest "
+                  f"magnitude (bound {FLASH_BWD_TOL[dt]})")
+            worst_abs = max(worst_abs, diff)
+            rels.append(rel)
+        worst_rel[dt] = max(worst_rel[dt], *rels)
+        print(f"[phaseL] {what} [{B}, {Tq}/{Tk}, {H} on {KV}, {d}/{dv}] {dt} "
+              f"causal {causal} window {w} q_offset {off}: forward with "
+              f"statistics on the {route} route, o_f32 within {e_o:.3e}, m "
+              f"{e_m:.2e}, l {e_l:.2e} of the plain ones ({int(empty.sum())} "
+              f"rows without keys), output bit-equal to the serving launch; "
+              f"backward dq/dk/dv within " + "/".join(f"{x:.2e}" for x in rels)
+              + f" of their largest magnitude (bound {FLASH_BWD_TOL[dt]}), "
+              f"the same bits on two launches")
+        if timing is None:           # the first case: Gemma-2B's shape
+            ms = event_ms(lambda: fa.flash_attention_backward(
+                q, k, v, po, pm, pl, do, **kw), 5)
+            fwd_ms = event_ms(lambda: fa.flash_attention_stats(q, k, v, **kw),
+                              10)
+            serve_ms = event_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
+            plain_ms = timed(lambda: fa.flash_attention_backward_reference(
+                q, k, v, po, pm, pl, do, **kw))[1]
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                   enable_gqa=True)
+            lib_ms = event_ms(lambda: torch.autograd.grad(
+                lib_o, (qs, ks, vs), do.transpose(1, 2), retain_graph=True),
+                5)
+            cost = fa.flash_attention_backward_cost(q, k, v, **kw)
+            b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+            print(f"[phaseL] flash_attention_backward [{B}, {Tq}, {H} on "
+                  f"{KV}, {d}] bf16 causal: kernel {ms:.4f} ms (median of 5, "
+                  f"CUDA events; three launches), plain {plain_ms:.1f} ms "
+                  f"(one run), scaled_dot_product_attention's backward "
+                  f"(enable_gqa) {lib_ms:.4f} ms; bound {b_ms:.4f} ms by "
+                  f"{b_by} ({cost['bytes'] / 1e6:.1f} MB, "
+                  f"{cost['ops'] / 1e9:.2f} GFLOP over {cost['pairs']} kept "
+                  f"pairs per head, at the bf16 peak; "
+                  f"{cost['ops'] / PEAK_F32_PER_S * 1e3:.3f} ms at the f32 "
+                  f"peak); the forward with statistics {fwd_ms:.4f} ms, "
+                  f"the serving forward {serve_ms:.4f} ms; "
+                  f"{registers('flash_attention_bwd', 'ILi16E')}")
+            del qs, ks, vs, lib_o
+    del q, k, v, do, o, m, l, po, pm, pl, g1, g2, gp
+    torch.cuda.empty_cache()
+
+    # ---- (b) Gemma-2B at full width and depth, bf16: kernels vs plain
+    cfg = get_arch("gemma-2b")
+    toks, labs = train_batch(dev, cfg, 21)
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    grads_vs_plain(params, cfg, toks, labs, "Gemma-2B bf16 [8 x 1,024] "
+                   "full width and depth", TRAIN_BF16_TOL, "tensor_core")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- (c) f32 at full width, 2 layers: the CUDA-core route
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                            cfg32)
+    grads_vs_plain(params, cfg32, toks, labs, "Gemma-2B f32 [8 x 1,024] "
+                   "full width, 2 layers", TRAIN_F32_TOL, "cuda_core")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- (d) the driver: full width and depth, then checkpoint and resume
+    argv = TRAIN_ARGV + ["--steps", str(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    L, n = cfg.n_layers, TRAIN_STEPS
+    fwd, bwd = dict(fa.flash_attention.launches_by_route), \
+        fa.flash_attention_backward.launches
+    check(fwd == {"tensor_core": 2 * L * n, "cuda_core": 0} and bwd == L * n,
+          f"train: forward launches {fwd}, backward {bwd}; want "
+          f"{2 * L * n} on the tensor-core route and {L * n}")
+    bwd_main = bwd
+    check(len(res["losses"]) == n and all(np.isfinite(res["losses"])),
+          f"train: losses {res['losses']}")
+    print(f"[phaseL] python -m repro_torch.launch.train {' '.join(argv)} "
+          f"(bf16, full width and depth): losses "
+          f"{json.dumps([round(x, 4) for x in res['losses']])}; warm step "
+          f"{res['warm_step_ms']:.1f} ms (median of {n - 1}, host clock "
+          f"after a synchronize; per step "
+          f"{json.dumps([round(x, 1) for x in res['step_ms']])}), "
+          f"{res['tok_s']:,.0f} tok/s, peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; launches a step: "
+          f"{2 * L} forward on the tensor-core route and {L} backward "
+          f"(exactly {fwd['tensor_core']} and {bwd} in {n} steps)")
+    profile_train_step(dev, cfg, res["state"], 8)
+    del res
+    torch.cuda.empty_cache()
+
+    saved_get = train.get_arch
+    train.get_arch = lambda name: dataclasses.replace(saved_get(name),
+                                                      n_layers=CKPT_LAYERS)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = ["--ckpt-every", "3", "--ckpt-dir", tmp]
+            first = train.main(TRAIN_ARGV + ["--steps", "6"] + ck)
+            mgr = CheckpointManager(tmp)
+            check(mgr.steps() == [3, 5], f"train: checkpoints {mgr.steps()}, "
+                  f"want steps 3 and 5")
+            restored = mgr.restore(5, first["state"])
+            check(all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(restored), tree_leaves(first["state"]))),
+                "train: the restored state differs from the saved one")
+            del restored
+            second = train.main(TRAIN_ARGV + ["--steps", "8"] + ck)
+            check(second["start"] == 6 and len(second["losses"]) == 2
+                  and all(np.isfinite(second["losses"]))
+                  and mgr.steps() == [5, 6, 7],
+                  f"train: resume started at {second['start']}, losses "
+                  f"{second['losses']}, checkpoints {mgr.steps()}")
+            size = sum(f.stat().st_size for f in Path(tmp).rglob("*.npy"))
+    finally:
+        train.get_arch = saved_get
+    print(f"[phaseL] checkpoint and auto-resume through the driver (Gemma-2B "
+          f"full width, {CKPT_LAYERS} layers): --steps 6 --ckpt-every 3 "
+          f"saved steps 3 and 5, the restored state bit-equal to the saved "
+          f"one; --steps 8 resumed at step 6 (losses "
+          f"{json.dumps([round(x, 4) for x in second['losses']])}) and saved "
+          f"steps 6 and 7 (the three newest kept); {size / 2**30:.2f} GiB "
+          f"on disk, "
+          f"{time.perf_counter() - t0:.1f} s")
+    del first, second
+    torch.cuda.empty_cache()
+
+    # ---- (e) the 100M example in f32: the CUDA-core route both ways
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_100m", ROOT / "examples" / "torch_train_100m.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    L = example.config().n_layers
+    n = int(EXAMPLE_ARGV[EXAMPLE_ARGV.index("--steps") + 1])
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        first_loss, last_loss = example.main(EXAMPLE_ARGV
+                                             + ["--ckpt-dir", tmp])
+    fwd, bwd = dict(fa.flash_attention.launches_by_route), \
+        fa.flash_attention_backward.launches
+    check(fwd == {"tensor_core": 0, "cuda_core": 2 * L * n} and bwd == L * n,
+          f"100M example: forward launches {fwd}, backward {bwd}")
+    check(np.isfinite(last_loss) and last_loss < first_loss,
+          f"100M example: loss {first_loss} -> {last_loss} did not fall")
+    print(f"[phaseL] examples/torch_train_100m.py {' '.join(EXAMPLE_ARGV)} "
+          f"(f32): loss {first_loss:.4f} -> {last_loss:.4f}; "
+          f"{2 * L} forward and {L} backward launches a step on the CUDA-core "
+          f"route; {time.perf_counter() - t0:.1f} s; phase L "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/ref.py:201",
+            "launches": bwd_main, "max_abs_err": worst_abs,
+            "max_rel_err_f32": worst_rel["float32"],
+            "max_rel_err_bf16": worst_rel["bfloat16"], **timing,
+            "shape": "gemma-2b [8, 1024, 8 on 1, 256] bf16"}
 
 
 if __name__ == "__main__":

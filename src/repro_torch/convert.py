@@ -33,6 +33,14 @@ port keeping the reference's dict keys and stacked [L, …] layout:
   * `params_from_numpy` — `repro.models.transformer.init_params`'s pytree
     (numpy leaves, e.g. ``jax.device_get(params)``) as the port's params;
   * `cache_from_numpy` — a reference prefill / decode cache the same way.
+
+The train state crosses over the same way (`launch.steps.TrainState`):
+
+  * `train_state_from_numpy` — a reference ``TrainState`` (params, AdamW
+    moments and count, scheduler state, step) with numpy leaves;
+  * `train_state_to_numpy` — a port train state as that structure with
+    numpy leaves (bf16 parameters widened to f32 exactly: numpy has no
+    bf16).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
 from repro_torch.core.fingerprint import FINGERPRINT
 from repro_torch.core.pdu_gate import Filtration, FiltrationStats
 from repro_torch.core.plant import GridPlant
@@ -172,6 +181,48 @@ def params_from_numpy(cfg, tree, device=None) -> dict:
         raise ValueError(f"{cfg.name}: parameter keys {sorted(tree)}, want "
                          f"{sorted(want)}")
     return _tree(tree, resolve_device(device))
+
+
+def train_state_from_numpy(cfg, ref_state, device=None):
+    """Port `TrainState` for ``cfg`` from the reference's train state (any
+    object with its field names — params, opt (m, v, count), sched, step —
+    whose leaves are numpy-convertible, e.g. ``jax.device_get(state)``).
+    The moments are checked against the parameter tree; the count and the
+    step become host int32 clocks."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    params = params_from_numpy(cfg, ref_state.params, dev)
+    m = _tree(ref_state.opt.m, dev)
+    v = _tree(ref_state.opt.v, dev)
+    for name, tree in (("m", m), ("v", v)):
+        got = [tuple(t.shape) for t in tree_leaves(tree)]
+        if got != [tuple(t.shape) for t in tree_leaves(params)]:
+            raise ValueError(f"{cfg.name}: AdamW {name} does not match the "
+                             f"parameter tree")
+    return TrainState(params=params,
+                      opt=AdamWState(m=m, v=v,
+                                     count=_clock(ref_state.opt.count)),
+                      sched=state_from_numpy(ref_state.sched, dev),
+                      step=_clock(ref_state.step))
+
+
+def train_state_to_numpy(state):
+    """The port's train state with numpy leaves: the same `TrainState` and
+    `AdamWState` fields (the reference's), int32 count and step."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree = lambda x: tree_unflatten(x, [leaf(t) for t in tree_leaves(x)])
+    return state._replace(
+        params=tree(state.params),
+        opt=state.opt._replace(m=tree(state.opt.m), v=tree(state.opt.v),
+                               count=np.asarray(int(state.opt.count),
+                                                np.int32)),
+        sched=state_to_numpy(state.sched),
+        step=np.asarray(int(state.step), np.int32))
 
 
 def cache_from_numpy(cfg, tree, device=None) -> dict:

@@ -39,6 +39,13 @@
 // gets the reference's mean of V.  Keys past Tk (the ragged last tile) are
 // −inf and weigh exactly 0; rows past Tq are computed and not stored.  The
 // Pallas wrapper halved its blocks until they divided T instead.
+//
+// Statistics (the training path, `flash_attention_stats_launch`): the same
+// kernel instantiated with STATS also writes the f32 output o32 [B, Tq, H,
+// dv] and each row's final running max m and sum l, f32 [B, H, Tq] — the
+// residuals `ref.make_flash`'s fwd saves for flash_attention_bwd.cu.  The
+// serving launch (`flash_attention_launch`) is the instantiation without
+// them, the same code as before they existed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,10 +81,12 @@ size_t smem_bytes(int d, int dv) {
                           size_t(BQ) * (BK + 1));
 }
 
+template <bool STATS>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const FlashArgs a, const void* __restrict__ q,
                  const void* __restrict__ k, const void* __restrict__ v,
-                 void* __restrict__ out) {
+                 void* __restrict__ out, float* __restrict__ o32,
+                 float* __restrict__ m_out, float* __restrict__ l_out) {
   extern __shared__ float smem[];
   const int d = a.d, dv = a.dv, qs = d + 1;
   float* sQ = smem;                  // [BQ][d + 1]
@@ -224,9 +233,37 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const int col = tx + 16 * c;
-      if (col < dv) store(out, base + col, acc[i][c] / norm, a.q_bf16);
+      if (col < dv) {
+        if (!STATS || static_cast<void*>(o32) != out)
+          store(out, base + col, acc[i][c] / norm, a.q_bf16);
+        if (STATS) o32[base + col] = acc[i][c] / norm;
+      }
+    }
+    if (STATS && tx == 0) {
+      const size_t srow = (size_t(b) * a.H + h) * a.Tq + q0 + row;
+      m_out[srow] = m[i];
+      l_out[srow] = l[i];
     }
   }
+}
+
+template <bool STATS>
+int launch(const FlashArgs* a, const void* q, const void* k, const void* v,
+           void* out, float* o32, float* m, float* l, void* stream) {
+  if (a->B < 1 || a->Tq < 1 || a->Tk < 1 || a->H < 1 || a->KV < 1 ||
+      a->H % a->KV || a->d < 1 || a->d > MAX_DIM || a->dv < 1 ||
+      a->dv > MAX_DIM || a->window < 0 || a->H > 65535 || a->B > 65535)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(a->d, a->dv);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a->Tq + BQ - 1) / BQ, a->H, a->B);
+  flash_kernel<STATS>
+      <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          *a, q, k, v, out, o32, m, l);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -234,16 +271,14 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int flash_attention_launch(const FlashArgs* a, const void* q,
                                       const void* k, const void* v,
                                       void* out, void* stream) {
-  if (a->B < 1 || a->Tq < 1 || a->Tk < 1 || a->H < 1 || a->KV < 1 ||
-      a->H % a->KV || a->d < 1 || a->d > MAX_DIM || a->dv < 1 ||
-      a->dv > MAX_DIM || a->window < 0 || a->H > 65535 || a->B > 65535)
-    return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(a->d, a->dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((a->Tq + BQ - 1) / BQ, a->H, a->B);
-  flash_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      *a, q, k, v, out);
-  return int(cudaGetLastError());
+  return launch<false>(a, q, k, v, out, nullptr, nullptr, nullptr, stream);
+}
+
+// out in q's type and o32 [B, Tq, H, dv], m, l [B, H, Tq] in f32 (o32 may
+// be out itself when q is f32: then only o32 is written)
+extern "C" int flash_attention_stats_launch(const FlashArgs* a, const void* q,
+                                            const void* k, const void* v,
+                                            void* out, float* o32, float* m,
+                                            float* l, void* stream) {
+  return launch<true>(a, q, k, v, out, o32, m, l, stream);
 }

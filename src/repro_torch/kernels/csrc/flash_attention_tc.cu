@@ -72,6 +72,15 @@
 //     they are wiped by the correction e^(−1e30 − m) = 0 at the first kept
 //     key.
 //   * Epilogue: normalise by max(l, 1e-20), store bf16 pairs.
+//   * Statistics (the training path, `flash_attention_tc_stats_launch`):
+//     the kernel instantiated with STATS also stores the f32 output o32
+//     [B, Tq, H, d] and each row's final running max and sum, f32 [B, H,
+//     Tq], by lane 0 of the row's quad after the quad's l reduction.  m is
+//     kept in log2 units here; it is stored in natural units (m·ln 2), and
+//     a row the mask leaves without keys keeps NEG_INF, as the plain
+//     version's m, so that the backward's exp(s − m) is 1 there.  The
+//     serving launch is the instantiation without them, the same code as
+//     before they existed.
 //
 // bf16 P in the value product is what scaled_dot_product_attention does
 // too; the result is held to the plain version within the reference's
@@ -95,6 +104,7 @@ constexpr int BOX = 64;                 // bf16 per 128-byte swizzled row
 constexpr int BOX_BYTES = 64 * 128;     // one box of 64 rows (ROWS == BK)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D_>
 struct Cfg {
@@ -416,12 +426,14 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4],
       p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-template <class C>
+template <class C, bool STATS>
 __global__ void __launch_bounds__(C::THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tmq,
                     const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv,
-                    const FlashTcArgs a, __nv_bfloat16* __restrict__ out) {
+                    const FlashTcArgs a, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ o32, float* __restrict__ m_out,
+                    float* __restrict__ l_out) {
   constexpr int D = C::D, NB = C::NB, CW = C::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -564,18 +576,28 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         const int pos = pos0[w] + r0 + 8 * r;
         if (pos >= a.Tq) continue;
         const float norm = fmaxf(l[r], 1e-20f);
-        __nv_bfloat16* row =
-            out + ((size_t(b) * a.Tq + pos) * a.H + head[w]) * D;
+        const size_t base = ((size_t(b) * a.Tq + pos) * a.H + head[w]) * D;
+        __nv_bfloat16* row = out + base;
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int col = nb * BOX + 8 * j + 2 * (lane & 3);
-            if (col < D)
+            if (col < D) {
+              const float lo = o[nb][4 * j + 2 * r] / norm,
+                          hi = o[nb][4 * j + 2 * r + 1] / norm;
               *reinterpret_cast<__nv_bfloat162*>(row + col) =
-                  __floats2bfloat162_rn(o[nb][4 * j + 2 * r] / norm,
-                                        o[nb][4 * j + 2 * r + 1] / norm);
+                  __floats2bfloat162_rn(lo, hi);
+              if (STATS)
+                *reinterpret_cast<float2*>(o32 + base + col) =
+                    make_float2(lo, hi);
+            }
           }
+        if (STATS && (lane & 3) == 0) {
+          const size_t srow = (size_t(b) * a.H + head[w]) * a.Tq + pos;
+          m_out[srow] = m[r] == NEG_INF ? NEG_INF : m[r] * LN2;
+          l_out[srow] = l[r];
+        }
       }
     }
   }
@@ -624,25 +646,44 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class C>
+template <class C, bool STATS>
 int launch(const FlashTcArgs& a, const void* q, const void* k, const void* v,
-           void* out, cudaStream_t stream) {
+           void* out, float* o32, float* m, float* l, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, a.B, a.Tq, a.H, a.d, ROWS) ||
       !tensor_map(&mk, k, a.B, a.Tk, a.KV, a.d, BK) ||
       !tensor_map(&mv, v, a.B, a.Tk, a.KV, a.d, BK))
     return int(cudaErrorNotSupported);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<C, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return int(err);
   const bool heads = (a.H / a.KV) % C::CW == 0;
   const int per_block = heads ? ROWS : C::CW * ROWS;
   const dim3 grid((a.Tq + per_block - 1) / per_block,
                   heads ? a.H / C::CW : a.H, a.B);
-  flash_tc_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, a, static_cast<__nv_bfloat16*>(out));
+  flash_tc_kernel<C, STATS><<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, a, static_cast<__nv_bfloat16*>(out), o32, m, l);
   return int(cudaGetLastError());
+}
+
+template <bool STATS>
+int dispatch(const FlashTcArgs* a, const void* q, const void* k,
+             const void* v, void* out, float* o32, float* m, float* l,
+             void* stream) {
+  if (a->B < 1 || a->Tq < 1 || a->Tk < 1 || a->H < 1 || a->KV < 1 ||
+      a->H % a->KV || a->window < 0 || a->B > 65535 || a->H > 65535 ||
+      (a->d != 64 && a->d != 112 && a->d != 128 && a->d != 256) ||
+      ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(out) |
+        uintptr_t(o32)) & 15))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (a->d) {
+    case 64: return launch<Cfg<64>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 112: return launch<Cfg<112>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 128: return launch<Cfg<128>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    default: return launch<Cfg<256>, STATS>(*a, q, k, v, out, o32, m, l, st);
+  }
 }
 
 }  // namespace
@@ -653,16 +694,15 @@ int launch(const FlashTcArgs& a, const void* q, const void* k, const void* v,
 extern "C" int flash_attention_tc_launch(const FlashTcArgs* a, const void* q,
                                          const void* k, const void* v,
                                          void* out, void* stream) {
-  if (a->B < 1 || a->Tq < 1 || a->Tk < 1 || a->H < 1 || a->KV < 1 ||
-      a->H % a->KV || a->window < 0 || a->B > 65535 || a->H > 65535 ||
-      (a->d != 64 && a->d != 112 && a->d != 128 && a->d != 256) ||
-      ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(out)) & 15))
-    return int(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a->d) {
-    case 64: return launch<Cfg<64>>(*a, q, k, v, out, st);
-    case 112: return launch<Cfg<112>>(*a, q, k, v, out, st);
-    case 128: return launch<Cfg<128>>(*a, q, k, v, out, st);
-    default: return launch<Cfg<256>>(*a, q, k, v, out, st);
-  }
+  return dispatch<false>(a, q, k, v, out, nullptr, nullptr, nullptr, stream);
+}
+
+// The same with the statistics: o32 [B, Tq, H, d] (16-byte aligned), m and
+// l [B, H, Tq], all f32.
+extern "C" int flash_attention_tc_stats_launch(const FlashTcArgs* a,
+                                               const void* q, const void* k,
+                                               const void* v, void* out,
+                                               float* o32, float* m, float* l,
+                                               void* stream) {
+  return dispatch<true>(a, q, k, v, out, o32, m, l, stream);
 }

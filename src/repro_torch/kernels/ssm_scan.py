@@ -10,7 +10,10 @@ Port of the TPU kernel `repro.kernels.ssm_scan.ssd` (Pallas body
     the chunks in order with the [N, P] state in shared memory) or raises;
     on CPU tensors it runs `ssd_reference`.  ``ssd.launches`` counts kernel
     launches.  Like the Pallas wrapper it halves ``chunk`` until it divides
-    T, and hands that chunk to either version.
+    T, and hands that chunk to either version.  The kernel has no backward
+    yet: on a card, with grad mode on and an input that requires grad, it
+    raises instead of returning an output without a graph (ROADMAP queue 1
+    step 10.5b); on the CPU `ssd_reference` is differentiated by autograd.
   * `ssd_reference` — the plain PyTorch version: `repro.kernels.ref.
     chunked_ssd` op for op (it keeps that function's assert that the chunk
     divides T).
@@ -94,6 +97,11 @@ def ssd(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
                              include_current=include_current)
     if d.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda or cpu, got {d.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (d, b, x, c, u, h0)):
+        raise NotImplementedError(
+            "ssd has no backward kernel on the card yet (ROADMAP queue 1 "
+            "step 10.5b): its kernel's output would carry no gradient")
     if ck > _MAX_CHUNK:
         raise ValueError(f"ssd: chunk {ck} > {_MAX_CHUNK}")
     return _launch(d, b, x, c, u, h0, ck, include_current)

@@ -1,8 +1,7 @@
 """Shared building blocks: RMS norm, RoPE, the dense MLPs (GeGLU, SwiGLU,
 GELU) and the routed mixture of experts.
 
-Port of `repro.models.layers` (the training-only ``recompute_vjp`` waits
-for ROADMAP queue 1 step 10.5).  Parameters are plain dicts of tensors with
+Port of `repro.models.layers`.  Parameters are plain dicts of tensors with
 the reference's key names; ``stack`` > 0 prepends a layer axis, as the
 reference's stacked [L, …] layout does.  Weights are drawn from an explicit
 `torch.Generator` on the device they live on (``gen.device``), with the
@@ -15,6 +14,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -30,6 +30,19 @@ def normal(gen: torch.Generator, shape, dtype: torch.dtype,
     x = torch.randn(tuple(shape), generator=gen, dtype=dtype,
                     device=gen.device)
     return x.mul_(scale)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward: the
+    reference's ``jax.checkpoint`` of each block plus ``recompute_vjp``.
+
+    Only ``args`` are kept for the backward.  ``recompute_vjp`` exists in
+    the reference because ``jax.checkpoint`` saves a custom VJP's residuals
+    (the flash attention's (q, k, v, o, m, l)); PyTorch's non-reentrant
+    checkpoint saves nothing of the block, so the flash residuals exist
+    only while one block's backward runs.  The forward of a checkpointed
+    block runs twice a step (forward and recompute), its backward once."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ------------------------------------------------------------------ norms --

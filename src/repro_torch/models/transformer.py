@@ -1,11 +1,13 @@
 """Config-driven model assembly for every architecture in `configs`.
 
-Port of `repro.models.transformer` for serving: `init_params`, `forward`,
-`init_cache`, `prefill` and `decode_step`.  Parameters keep the reference's
-dict key names and its stacked [L, …] per-layer layout, so weights cross
-over leaf for leaf (`repro_torch.convert.params_from_numpy`); the layer
-stack runs as a Python loop over the stacked tensors (PyTorch runs eagerly:
-no scan is needed).  One code path per family:
+Port of `repro.models.transformer`: `init_params`, `forward`, `loss_fn`
+(with `_hidden`), `init_cache`, `prefill` and `decode_step`.  Parameters
+keep the reference's dict key names and its stacked [L, …] per-layer
+layout, so weights cross over leaf for leaf
+(`repro_torch.convert.params_from_numpy`); the layer stack runs as a Python
+loop over the stacked tensors (PyTorch runs eagerly: no scan is needed),
+each stacked leaf split once per call with ``torch.unbind`` (`_unstack`),
+whose backward is one ``stack``.  One code path per family:
 
   * attention families (dense, moe, vlm, audio): L blocks of RMS norm →
     GQA or MLA attention (full or sliding-window) → RMS norm → MLP or MoE;
@@ -33,15 +35,20 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
                                        moe_init, normal, param_dtype,
                                        rms_norm)
+from repro_torch.models.layers import remat as _remat
 
 Params = dict[str, Any]
 Cache = dict[str, Any]
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter (sub)tree."""
+def _unstack(tree, L: int) -> list:
+    """The L per-layer (sub)trees of a stacked parameter tree: one
+    ``torch.unbind`` per leaf.  Under autograd its backward is one
+    ``stack`` per leaf; indexing ``leaf[i]`` instead would write a
+    zero-filled [L, …] gradient per layer (SelectBackward)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, L) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(L)]
+    return list(torch.unbind(tree))
 
 
 # ================================================================== init ==
@@ -144,29 +151,36 @@ def _stack(states: list) -> tuple:
     return tuple(torch.stack(leaf) for leaf in zip(*states))
 
 
-def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool):
+def _mamba_layer(bp: Params, cfg: ArchConfig, x):
+    h = rms_norm(x, bp["mamba_norm"], cfg.norm_eps)
+    y, st = ssm.mamba2_forward(bp["mamba"], h, cfg)
+    return x + y, st
+
+
+def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool,
+           remat_blocks: bool = False):
     """Embedding and layer stack: (final hidden [B, S, D], cache or None,
     summed MoE aux loss).
 
     The cache has the reference's layout: attention families (k, v) or
     MLA's (c, k_rope), stacked [L, …]; ssm (h, prev_t, prev_c) stacked;
     hybrid {"mamba": (h [L, …], conv tails [L, …]), "attn": (k, v) stacked
-    over the shared block's applications}.
+    over the shared block's applications}.  With ``remat_blocks`` each
+    block (each Mamba2 layer of the hybrid; its shared block is not, as in
+    the reference) runs under `layers.remat`.
     """
     x = _embed_in(p, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    blocks = p["blocks"]
+    layers = _unstack(p["blocks"], cfg.n_layers)
+    run = _remat if remat_blocks else (lambda fn, *a: fn(*a))
     states, mamba = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         off = 0
         for gs in _hybrid_group_ids(cfg):
             for i in range(off, off + gs):
-                h = rms_norm(x, blocks["mamba_norm"][i], cfg.norm_eps)
-                y, st = ssm.mamba2_forward(_layer(blocks["mamba"], i), h,
-                                           cfg)
-                x = x + y
+                x, st = run(_mamba_layer, layers[i], cfg, x)
                 if collect_cache:
                     mamba.append(st)
             off += gs
@@ -177,12 +191,11 @@ def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool):
         if not collect_cache:
             return x, None, aux
         return x, {"mamba": _stack(mamba), "attn": _stack(states)}, aux
-    for i in range(cfg.n_layers):
-        bp = _layer(blocks, i)
+    for bp in layers:
         if cfg.family == "ssm":
-            x, st = _rwkv_block(bp, cfg, x)
+            x, st = run(_rwkv_block, bp, cfg, x)
         else:
-            x, st, a = _attn_block(bp, cfg, x, positions)
+            x, st, a = run(_attn_block, bp, cfg, x, positions)
             if a is not None:
                 aux = aux + a
         if collect_cache:
@@ -198,6 +211,50 @@ def forward(p: Params, cfg: ArchConfig, tokens, *, collect_cache=False):
     """
     x, cache, aux = _trunk(p, cfg, tokens, collect_cache)
     return _logits(p, cfg, x), {"moe_aux": aux, "cache": cache}
+
+
+# ================================================================= loss ==
+def _hidden(p: Params, cfg: ArchConfig, tokens, *, remat: bool = False):
+    """Forward up to the final hidden states (no LM head): (x, summed MoE
+    aux loss)."""
+    x, _, aux = _trunk(p, cfg, tokens, collect_cache=False,
+                       remat_blocks=remat)
+    return x, aux
+
+
+def _chunk_nll(x, labels, head):
+    """Σ (logsumexp − gold logit) over one slice of positions, logits in
+    f32."""
+    logits = (x @ head).float()
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def loss_fn(p: Params, cfg: ArchConfig, tokens, labels, *,
+            remat: bool = False, moe_aux_weight: float = 0.01,
+            seq_chunk: int = 512):
+    """Causal-LM cross entropy (f32) plus the MoE load-balance aux loss,
+    as the reference's: (nll + moe_aux_weight·aux, {"nll", "moe_aux"}).
+
+    The LM head and softmax run over slices of ``ck`` positions (``ck`` =
+    min(seq_chunk, S), halved until it divides S), each slice under
+    `layers.remat`, so the f32 [B, S, V] logits never exist whole: at
+    Gemma-2B's 256,000-word vocabulary one [8, 512] slice is already
+    4.2 GB.
+    """
+    x, aux = _hidden(p, cfg, tokens, remat=remat)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    B, S, _ = x.shape
+    ck = min(seq_chunk, S)
+    while S % ck:
+        ck //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, ck):
+        total = total + _remat(_chunk_nll, x[:, c0:c0 + ck],
+                               labels[:, c0:c0 + ck], head)
+    nll = total / (B * S)
+    return nll + moe_aux_weight * aux, {"nll": nll, "moe_aux": aux}
 
 
 # ================================================================ cache ==
@@ -290,11 +347,9 @@ def decode_step(p: Params, cfg: ArchConfig, cache: Cache, token, pos: int):
     the absolute position (a Python int).  Returns (logits [B, V] f32,
     cache), the cache updated in place."""
     x = _embed_in(p, cfg, token[:, None])           # [B, 1, D]
-    blocks = p["blocks"]
     if cfg.family == "hybrid":
         return _hybrid_decode(p, cfg, cache, x, pos)
-    for i in range(cfg.n_layers):
-        bp = _layer(blocks, i)
+    for i, bp in enumerate(_unstack(p["blocks"], cfg.n_layers)):
         if cfg.family == "ssm":
             h = rms_norm(x, bp["tm_norm"], cfg.norm_eps)
             y, h2, pt = ssm.rwkv6_time_mix_decode(
@@ -327,14 +382,13 @@ def decode_step(p: Params, cfg: ArchConfig, cache: Cache, token, pos: int):
 
 
 def _hybrid_decode(p: Params, cfg: ArchConfig, cache: Cache, x, pos: int):
-    blocks = p["blocks"]
+    layers = _unstack(p["blocks"], cfg.n_layers)
     off = app = 0
     for gs in _hybrid_group_ids(cfg):
         for i in range(off, off + gs):
-            hh = rms_norm(x, blocks["mamba_norm"][i], cfg.norm_eps)
-            y, h2, c2 = ssm.mamba2_decode(_layer(blocks["mamba"], i), hh,
-                                          cfg, cache["h"][i],
-                                          cache["conv"][i])
+            hh = rms_norm(x, layers[i]["mamba_norm"], cfg.norm_eps)
+            y, h2, c2 = ssm.mamba2_decode(layers[i]["mamba"], hh, cfg,
+                                          cache["h"][i], cache["conv"][i])
             cache["h"][i] = h2
             cache["conv"][i] = c2
             x = x + y

@@ -884,3 +884,113 @@ def test_cuda_service_flush_records_match_broadcast(cuda):
         assert ([(a["tenant"], a["kind"], a["event"]) for a in rec["alerts"]]
                 == [(a["tenant"], a["kind"], a["event"])
                     for a in want["alerts"]])
+
+
+# ---------------------------------------------------------------- training --
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Tq,Tk,H,KV,d,dv,window,q_offset", [
+    (torch.bfloat16, 2, 256, 256, 8, 1, 256, 256, 0, 0),   # Gemma's MQA
+    (torch.bfloat16, 1, 300, 300, 4, 2, 112, 112, 64, 0),  # ragged, window
+    (torch.bfloat16, 1, 128, 128, 8, 8, 192, 128, 0, 0),   # MLA's d != dv
+    (torch.float32, 2, 200, 200, 10, 5, 64, 64, 0, 0),     # the 100M example
+    (torch.float32, 1, 64, 200, 2, 1, 32, 32, 8, 300),     # rows left empty
+])
+def test_cuda_flash_backward_matches_plain_version(cuda, dtype, B, Tq, Tk,
+                                                   H, KV, d, dv, window,
+                                                   q_offset):
+    """The statistics forward against the plain statistics (its output the
+    serving launch's bits) and the backward kernel against the plain
+    backward: each gradient within 1e-5 (f32) or 5e-3 (bf16) of its
+    largest magnitude, the same bits on two launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v, do = r(B, Tq, H, d), r(B, Tk, KV, d), r(B, Tk, KV, dv), \
+        r(B, Tq, H, dv)
+    kw = dict(window=window, q_offset=q_offset)
+    out, o, m, l = tfa.flash_attention_stats(q, k, v, **kw)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, **kw))
+    po, pm, pl = tfa.flash_attention_stats_reference(q, k, v, **kw)
+    assert torch.equal(m <= -1e29, pm <= -1e29)
+    torch.testing.assert_close(o, po, rtol=0,
+                               atol=2e-5 if dtype == torch.float32 else 2e-2)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+    before = tfa.flash_attention_backward.launches
+    g1 = tfa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
+    g2 = tfa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
+    assert tfa.flash_attention_backward.launches == before + 2
+    want = tfa.flash_attention_backward_reference(q, k, v, po, pm, pl, do,
+                                                  **kw)
+    bound = 1e-5 if dtype == torch.float32 else 5e-3
+    for a, b, w in zip(g1, g2, want):
+        assert torch.equal(a, b) and a.dtype == w.dtype
+        assert float((a.float() - w.float()).abs().max()) <= bound * float(
+            w.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_with_grad_launches_both_kernels(cuda):
+    q, k, v = (torch.randn(1, 128, 4, 64, device=cuda, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    tfa.reset_launches()
+    out = tfa.flash_attention(q, k, v)
+    out.float().square().sum().backward()
+    assert tfa.flash_attention.launches_by_route["tensor_core"] == 1
+    assert tfa.flash_attention_backward.launches == 1
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_to_return_an_output_without_a_graph(cuda):
+    """The ssd kernel has no backward yet (ROADMAP queue 1 step 10.5b)."""
+    d = torch.full((1, 64, 2, 16), 0.9, device=cuda, requires_grad=True)
+    b, c = (torch.randn(1, 64, 2, 16, device=cuda) for _ in range(2))
+    x = torch.randn(1, 64, 2, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="10.5b"):
+        tsm.ssd(d, b, x, c)
+    with torch.no_grad():
+        y, _ = tsm.ssd(d, b, x, c)
+    assert y.shape == x.shape
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_kernels_match_plain_versions(cuda):
+    """Reduced Gemma (bf16, head dim 64: the tensor-core route) — one
+    step's loss and gradients on the kernels against FlashAttention's plain
+    branches: 2 forward launches and 1 backward a layer, each gradient leaf
+    within 5e-2 of its largest magnitude (bf16)."""
+    from repro_torch.launch import steps as S
+
+    cfg = reduced(get_arch("gemma-2b"), head_dim=64, dtype="bfloat16")
+    params = ttf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(2, cfg.vocab_size, (2, 256), device=cuda)
+    labs = torch.randint(2, cfg.vocab_size, (2, 256), device=cuda)
+    tfa.reset_launches()
+    loss, _, grads = S.loss_and_grads(params, cfg, toks, labs)
+    L = cfg.n_layers
+    assert tfa.flash_attention.launches_by_route["tensor_core"] == 2 * L
+    assert tfa.flash_attention_backward.launches == L
+    saved = tfa.flash_attention_stats, tfa.flash_attention_backward
+    tfa.flash_attention_stats = lambda q, k, v, **kw: (
+        lambda o, m, l: (o.to(q.dtype), o, m, l))(
+            *tfa.flash_attention_stats_reference(q, k, v, **kw))
+    tfa.flash_attention_backward = \
+        lambda q, k, v, o, m, l, do, **kw: \
+        tfa.flash_attention_backward_reference(q, k, v, o, m, l,
+                                               do.contiguous(), **kw)
+    try:
+        loss_p, _, grads_p = S.loss_and_grads(params, cfg, toks, labs)
+    finally:
+        tfa.flash_attention_stats, tfa.flash_attention_backward = saved
+    assert float(loss) == pytest.approx(float(loss_p), rel=1e-3)
+    for a, b in zip(grads, grads_p):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_train_driver_refuses_the_ssd_families(cuda):
+    from repro_torch.launch import train
+
+    with pytest.raises(SystemExit, match="10.5b"):
+        train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1"])

@@ -34,7 +34,8 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
     ROOT / "scripts" / "kernel_ab.py",
     ROOT / "scripts" / "thermal_conv_limits.py",
-    ROOT / "examples" / "torch_broadcast_step.py"],
+    ROOT / "examples" / "torch_broadcast_step.py",
+    ROOT / "examples" / "torch_train_100m.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
@@ -65,11 +66,13 @@ def test_port_has_every_module_of_the_slice():
                 "fleet/registry.py", "fleet/alerts.py", "fleet/service.py",
                 "checkpoint/__init__.py", "checkpoint/manager.py",
                 "distributed/__init__.py",
-                "distributed/fault_tolerance.py"):
+                "distributed/fault_tolerance.py", "optim/__init__.py",
+                "optim/adamw.py", "data/__init__.py", "data/pipeline.py",
+                "launch/train.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
                 "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu",
-                "fma_f32.cu"):
+                "fma_f32.cu", "flash_attention_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file(), src
 

@@ -35,6 +35,20 @@ def trace(steps: int, n: int, tiles: int, seed: int = 0) -> np.ndarray:
     return rng.uniform(0.9, 2.7, (steps, n, tiles)).astype(np.float32)
 
 
+def lm_batch(cfg, rng, B: int = 2, S: int = 32, n_tiles: int = 4) -> dict:
+    """A train-step batch for ``cfg`` as numpy arrays: int32 token ids (or a
+    stub frontend's 0.02·N(0, 1) f32 embeddings) and labels [B, S], and a
+    flat ρ of 1.9 over ``n_tiles``."""
+    labels = rng.integers(2, cfg.vocab_size, (B, S)).astype(np.int32)
+    if cfg.frontend != "token":
+        tokens = (0.02 * rng.standard_normal((B, S, cfg.d_model))).astype(
+            np.float32)
+    else:
+        tokens = rng.integers(2, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"tokens": tokens, "labels": labels,
+            "rho": np.full((n_tiles,), 1.9, np.float32)}
+
+
 def assert_telemetry_close(ref, port, where: str = "") -> None:
     """Field-for-field comparison of two FleetTelemetry records (any leaf
     shape), with the bound taxonomy above."""
