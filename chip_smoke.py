@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card's name and power limit (nvidia-smi) and builds the
-         eight kernel sources of the checkout, one nvcc each, in parallel.
+         nine kernel sources of the checkout, one nvcc each, in parallel.
 Phase A  the `fleet_step` CUDA kernel against its plain PyTorch version
          (`fleet_step_reference`) on the card at 1 tile × 4,096 packages
          (serve --stream's shape: no Γ), 4 tiles × 200 and 47 tiles × 64,
@@ -140,9 +140,11 @@ Phase J  the resident fleet control plane (PR 18).  (a) `fma_f32.cu` against
 
 Phase K  every model family of configs/ served.  (a) The serving
          kernels at this slice's shapes against their plain versions:
-         flash on the CUDA-core route at DeepSeek-V2's MLA prefill [2,
-         1,024, 128, q/k 192 / v 128] with the explicit scale 192^-0.5,
-         causal (f32 within 2e-5, bf16 within 2e-2); flash on the
+         flash at DeepSeek-V2's MLA prefill [2, 1,024, 128, q/k 192 / v
+         128] with the explicit scale 192^-0.5, causal (f32 on the
+         CUDA-core route within 2e-5, bf16 on the tensor-core route
+         within 2e-2, timed beside the CUDA-core kernel's earlier time,
+         SDPA and the bound); flash on the
          tensor-core route in bf16 (within 2e-2) at musicgen-large's
          prefill [8, 1,024, 32 on 32, 64] and chameleon-34b's [8, 1,024,
          64 on 8, 128], causal, and at Mixtral's [2, 4,608, 32 on 8, 128]
@@ -165,7 +167,7 @@ Phase K  every model family of configs/ served.  (a) The serving
          --gen 32 (8 flash on the tensor-core route; the prefill masks
          keys, the ring rolls by 512, decode writes slot pos % 4096) and
          deepseek-v2-236b at 4 of 60 with --batch 2 --prompt-len 1024
-         --gen 16 (4 flash on the CUDA-core route) — exact launch counts
+         --gen 16 (4 flash on the tensor-core route) — exact launch counts
          and routes, none in decode; a profiled prefill and decode step
          of RWKV6 and of the Mixtral cut.  (c) Full-width correctness in
          f32 inside the port: RWKV6 (batch 2, prompt 128) decode vs the
@@ -182,21 +184,25 @@ Phase K  every model family of configs/ served.  (a) The serving
          Gemma-2B with kv_cache_dtype="int8" decode vs forward within 0.05
          relative, the cache still int8.
 
-Phase L  training (PR 20).  (a) `flash_attention_stats` (each route's
-         forward with its f32 output and row statistics) against the plain
-         statistics, its output bit-equal to the serving launch's, and the
-         backward kernel (flash_attention_bwd.cu) against the plain backward
+Phase L  training.  (a) `flash_attention_stats` (each
+         route's forward with its f32 output and row statistics) against
+         the plain statistics, its output bit-equal to the serving
+         launch's, and the backward — on the route `flash_route` names:
+         flash_attention_bwd_tc.cu for bf16 at the tensor-core pairs,
+         flash_attention_bwd.cu for the rest — against the plain backward
          (`make_flash`'s bwd) on the plain residuals — gradients within
          1e-5 (f32) and 5e-3 (bf16) of each one's largest magnitude, the
          same bits on two launches — at Gemma-2B's training shape [8, 1,024,
          8 on 1, 256] bf16, the 100M example's [8, 256, 10 on 5, 64] f32,
          Zamba2-7B's [8, 1,024, 32, 112], MLA's [2, 1,024, 128, 192 / 128],
-         a window, a ragged T, rows a window empties and f32 at d 256; timed
-         at Gemma's shape beside its bound, the plain backward and
-         scaled_dot_product_attention's backward (enable_gqa; library_ms, a
-         yardstick only).  (b) Gemma-2B at full width and depth in bf16:
-         loss and gradients on the kernels (36 forward launches on the
-         tensor-core route, 18 backward) against FlashAttention on its
+         a window, a ragged T, rows a window empties, f32 at d 256 and bf16
+         at d 96 (the CUDA-core kernel's bf16 check); timed at Gemma's,
+         Zamba2's, MLA's and the 100M example's shapes beside the bound,
+         the plain backward and scaled_dot_product_attention's backward
+         (enable_gqa; library_ms, a yardstick only).  (b) Gemma-2B at full
+         width and depth in bf16: loss and gradients on the kernels (36
+         forward launches and 18 backward, all on the tensor-core route)
+         against FlashAttention on its
          plain branches (no launch), the loss within 1e-3 and each
          gradient leaf within 5e-2 of its largest magnitude (bf16 P in the
          tensor-core forward and bf16 activations through 18 layers and
@@ -204,7 +210,7 @@ Phase L  training (PR 20).  (a) `flash_attention_stats` (each route's
          route): each leaf within 1e-4.  (d) `repro_torch.launch.train
          --arch gemma-2b --batch 8 --seq 1024 --steps 6` in process:
          finite losses, exactly 36 forward and 18 backward launches a
-         step, the warm step time, tok/s, peak device memory, and a
+         step, all on the tensor-core route, the warm step time, tok/s, peak device memory, and a
          profiled warm step (device time by group: flash forward, flash
          backward, GEMM, the rest; the AdamW update's span; idle share);
          then checkpoint and auto-resume through the same driver at full
@@ -247,7 +253,8 @@ SHFL_LATENCY_CYCLES = 24
 GRID_CHAIN_FP32_OPS = 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 KERNELS = ("fleet_step", "thermal_conv", "grid_conv", "flash_attention",
-           "flash_attention_tc", "ssd", "fma_f32", "flash_attention_bwd")
+           "flash_attention_tc", "ssd", "fma_f32", "flash_attention_bwd",
+           "flash_attention_bwd_tc")
 # full-width (tiles, steps) of the thermal kernels' main paths: the paper's
 # 90k-step dataset length at thermal_conv's datacenter width (N = 512, the
 # reference kernel's stated O(512)) and at the 47-tile Ponte-Vecchio grid
@@ -359,7 +366,8 @@ def max_err(out, ref, where: str, rtol: float = TOL["rtol"],
 def registers(name: str, kernel: str = "") -> str:
     """`nvcc -Xptxas -v`'s registers and spill bytes of each kernel in the
     library ``name`` whose mangled name contains ``kernel``, each named by
-    its template arguments (``<2, true>``)."""
+    its template arguments (``<2, true>``), after its own name where nvcc
+    tagged it with an anonymous namespace (``dq_kernel <256, 256>``)."""
     import re
 
     from repro_torch.kernels import _build
@@ -371,9 +379,17 @@ def registers(name: str, kernel: str = "") -> str:
                                                     "false")
                                for t, v in vals) + ">"
 
+    def base(mangled: str) -> str:
+        """The kernel's own name (after nvcc's anonymous-namespace tag),
+        or "" where the name has no such tag."""
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+        return (mangled[m.end():m.end() + int(m.group(1))] + " "
+                if m else "")
+
     return "; ".join(
-        f"{args(k)}: {u['registers']} registers, {u['spill_stores']} B "
-        f"spill stores, {u['spill_loads']} B spill loads"
+        f"{base(k)}{args(k)}: {u['registers']} registers, "
+        f"{u['spill_stores']} B spill stores, {u['spill_loads']} B spill "
+        f"loads"
         for k, u in sorted(_build.resource_usage(name).items())
         if kernel in k)
 
@@ -675,7 +691,7 @@ def main() -> None:
     phase_h(dev, fa_entry, ssd_entry)
     phase_k(dev, fa_entry, ssd_entry)
     fma_entry = phase_j(dev)
-    fb_entry = phase_l(dev)
+    fb_entries = phase_l(dev)
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -692,7 +708,7 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         **mc_entry,
-    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, fb_entry]}))
+    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1831,7 +1847,7 @@ def phase_h(dev, fa_entry: dict, ssd_entry: dict) -> None:
     torch.cuda.empty_cache()
 
 
-# Phase K: this slice's kernel shapes — flash on the CUDA-core route at
+# Phase K: this slice's kernel shapes — flash at
 # DeepSeek-V2's MLA prefill (B, T, H, d, dv; --batch 2 --prompt-len 1024);
 # flash on the tensor-core route at the serve shapes no other phase holds
 # (B, T, H, KV, d, window): musicgen-large's and chameleon-34b's prefill at
@@ -1856,12 +1872,16 @@ K_SERVE = (
     ("mixtral-8x7b", 8, ["--batch", "2", "--prompt-len", "4608", "--gen",
                          "32"], 8, "tensor_core", 0),
     ("deepseek-v2-236b", 4, ["--batch", "2", "--prompt-len", "1024",
-                             "--gen", "16"], 4, "cuda_core", 0),
+                             "--gen", "16"], 4, "tensor_core", 0),
 )
 # the f32 checks: Mixtral's cut and prompt (past its 4,096-token window, so
 # the ring wraps), DeepSeek-V2's cut and prompt
 K_F32_MIXTRAL = (2, 4100)
 K_F32_DEEPSEEK = (1, 128)
+# MLA's flash before the tensor-core route for d ≠ dv: the CUDA-core kernel
+# at MLA_FLASH in bf16 (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
+# table)
+MLA_CUDA_CORE_MS = 11.936
 
 
 def serve_argv(extra=()) -> list:
@@ -1927,13 +1947,15 @@ def phase_k(dev, fa_entry: dict, ssd_entry: dict) -> None:
         return ms, F.scaled_dot_product_attention(qt, kt, vt, **kw
                                                   ).transpose(1, 2)
 
-    # MLA: q/k head dim 192, v 128, the explicit scale, causal
+    # MLA: q/k head dim 192, v 128, the explicit scale, causal; bf16 on the
+    # tensor-core route, f32 on the CUDA-core one
     B, T, H, d, dv = MLA_FLASH
     mla_scale = d ** -0.5                 # (dh + rd) ** -0.5, dh 128, rd 64
     mla = {}
-    for dt, atol in ((f32, 2e-5), (bf16, 2e-2)):
+    for dt, atol, want in ((f32, 2e-5, "cuda_core"),
+                           (bf16, 2e-2, "tensor_core")):
         q, k, v = r(dt, B, T, H, d), r(dt, B, T, H, d), r(dt, B, T, H, dv)
-        out, e, plain_ms = flash_k(f"MLA {dt}", q, k, v, "cuda_core", atol,
+        out, e, plain_ms = flash_k(f"MLA {dt}", q, k, v, want, atol,
                                    scale=mla_scale)
         mla[dt] = (q, k, v, out, e, plain_ms)
     q, k, v, out, e_mla, mla_plain = mla[bf16]
@@ -1945,14 +1967,17 @@ def phase_k(dev, fa_entry: dict, ssd_entry: dict) -> None:
     cost = fa.flash_attention_cost(q, k, v)
     mla_bound, mla_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
     print(f"[phaseK] flash_attention MLA {list(MLA_FLASH)} (q/k 192, v 128, "
-          f"scale 192^-0.5, causal) on the CUDA-core route: max_abs_err vs "
-          f"plain {mla[f32][4]:.3e} in f32 (bound 2e-5), {e_mla:.3e} in "
-          f"bf16 (bound 2e-2); bf16 kernel {mla_ms:.4f} ms (median of 10, "
-          f"CUDA events), plain {mla_plain:.1f} ms (one run), "
+          f"scale 192^-0.5, causal): max_abs_err vs plain {mla[f32][4]:.3e} "
+          f"in f32 on the CUDA-core route (bound 2e-5), {e_mla:.3e} in bf16 "
+          f"on the tensor-core route (bound 2e-2); bf16 kernel "
+          f"{mla_ms:.4f} ms (median of 10, CUDA events; {MLA_CUDA_CORE_MS} "
+          f"ms on the CUDA-core kernel before this route), plain "
+          f"{mla_plain:.1f} ms (one run), "
           f"scaled_dot_product_attention {mla_lib:.4f} ms (|Δ| {d_lib:.2e} "
           f"vs the kernel); bound {mla_bound:.4f} ms by {mla_by} "
           f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} GFLOP at "
           f"the bf16 peak)")
+    mla_f32_err = mla[f32][4]
     del mla
 
     # the tensor-core route at each serve shape no other phase holds:
@@ -2271,11 +2296,13 @@ def phase_k(dev, fa_entry: dict, ssd_entry: dict) -> None:
                                       t["max_abs_err"])
     fa_entry.update(
         ms_mla=mla_ms, plain_ms_mla=mla_plain, bound_ms_mla=mla_bound,
-        library_ms_mla=mla_lib, cuda_core_max_abs_err_mla=e_mla,
+        library_ms_mla=mla_lib, max_abs_err_mla=e_mla,
+        cuda_core_max_abs_err_mla_f32=mla_f32_err,
         launches_phase_k=total["flash"],
         launches_phase_k_cuda_core=total["cuda_core"])
+    fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"], e_mla)
     fa_entry["cuda_core_max_abs_err"] = max(
-        fa_entry["cuda_core_max_abs_err"], e_mla)
+        fa_entry["cuda_core_max_abs_err"], mla_f32_err)
     ssd_entry.update(ms_rwkv6=rwkv_ms, plain_ms_rwkv6=plain_ms,
                      bound_ms_rwkv6=rwkv_bound,
                      max_abs_err_rwkv6_model=s_model[0],
@@ -2702,13 +2729,15 @@ def phase_j(dev) -> dict:
             "service_tick_ms": med}
 
 
-# Phase L: the training slice.  The backward kernel's cases (what, B, Tq,
-# Tk, H, KV, d, dv, dtype name, causal, window, q_offset); the bounds on
-# its gradients as a share of each gradient's largest magnitude (the
-# first chip run measured at most 9.5e-7 in f32 and 2.3e-3 in bf16); the
-# train step's bounds kernels vs plain versions (probe: 1.7e-2 per bf16
-# leaf, loss 2e-5 relative); the driver's arguments; the depth of the
-# checkpoint-and-resume run
+# Phase L: the training slice.  The backward kernels' cases (what, B, Tq,
+# Tk, H, KV, d, dv, dtype name, causal, window, q_offset: bf16 at the
+# tensor-core pairs takes flash_attention_bwd_tc.cu, the rest
+# flash_attention_bwd.cu, as `flash_route` says); the cases timed, by tag;
+# the bounds on the gradients as a share of each gradient's largest
+# magnitude (the CUDA-core kernel's first chip run measured at most 9.5e-7
+# in f32 and 2.3e-3 in bf16); the train step's bounds kernels vs plain
+# versions (probe: 1.7e-2 per bf16 leaf, loss 2e-5 relative); the driver's
+# arguments; the depth of the checkpoint-and-resume run
 FLASH_BWD_CASES = (
     ("Gemma-2B training", 8, 1024, 1024, 8, 1, 256, 256, "bfloat16", True,
      0, 0),
@@ -2722,7 +2751,15 @@ FLASH_BWD_CASES = (
     ("f32 d 256 window", 2, 200, 200, 4, 2, 256, 256, "float32", True, 96,
      0),
     ("f32 not causal, q_offset", 1, 130, 257, 4, 2, 48, 40, "float32",
-     False, 0, 64))
+     False, 0, 64),
+    ("bf16 d 96 (no tensor-core pair)", 2, 300, 300, 4, 2, 96, 96,
+     "bfloat16", True, 0, 0))
+FLASH_BWD_TIMED = {"Gemma-2B training": "gemma", "Zamba2-7B": "zamba2",
+                   "MLA": "mla", "the 100M example": "100m"}
+# the backward before its tensor-core kernel: flash_attention_bwd.cu in
+# bf16 at Gemma-2B's shape (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
+# table)
+FLASH_BWD_CUDA_CORE_MS = 12.130
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 TRAIN_BF16_TOL = 5e-2
 TRAIN_LOSS_TOL = 1e-3
@@ -2775,11 +2812,12 @@ def grads_vs_plain(params, cfg, toks, labs, where: str, bound: float,
     loss, _, g_k = S.loss_and_grads(params, cfg, toks, labs)
     torch.cuda.synchronize()
     routes = dict(fa.flash_attention.launches_by_route)
+    b_routes = dict(fa.flash_attention_backward.launches_by_route)
     check(routes[route] == 2 * L and fa.flash_attention.launches == 2 * L
-          and fa.flash_attention_backward.launches == L,
-          f"{where}: forward launches {routes}, backward "
-          f"{fa.flash_attention_backward.launches}; want {2 * L} on the "
-          f"{route} route and {L}")
+          and fa.flash_attention_backward.launches == L
+          and b_routes[route] == L,
+          f"{where}: forward launches {routes}, backward {b_routes}; want "
+          f"{2 * L} and {L} on the {route} route")
     with plain_flash_grads():
         loss_p, _, g_p = S.loss_and_grads(params, cfg, toks, labs)
     torch.cuda.synchronize()
@@ -2798,8 +2836,9 @@ def grads_vs_plain(params, cfg, toks, labs, where: str, bound: float,
               f"magnitude (bound {bound})")
         worst = max(worst, rel)
     print(f"[phaseL] {where}: loss {lk:.6f} on the kernels, {lp:.6f} on the "
-          f"plain versions; {2 * L} forward launches ({route}) and {L} "
-          f"backward, none in the plain run; the {len(g_k)} gradient "
+          f"plain versions; {2 * L} forward launches and {L} backward, "
+          f"all on the {route} route, none in the plain run; the "
+          f"{len(g_k)} gradient "
           f"leaves within {worst:.3e} of their largest magnitude (bound "
           f"{bound})")
     return lk, worst
@@ -2823,7 +2862,8 @@ def profile_train_step(dev, cfg, state, n_tiles: int) -> None:
     group (torch.profiler, CUDA activity) against the host clock, the
     AdamW update's span (its `record_function` range on the device) and
     the idle share.  The flash groups must hold exactly 2 × layers forward
-    and 3 × layers backward kernel runs (three kernels a backward call)."""
+    kernel runs and, in the backward group (three or four kernels a call),
+    one dQ pass a layer."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2843,12 +2883,13 @@ def profile_train_step(dev, cfg, state, n_tiles: int) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     groups = (("flash forward", ("flash_tc_kernel", "flash_kernel")),
               ("flash backward", ("dkdv_kernel", "dq_kernel",
-                                  "delta_kernel")),
+                                  "delta_kernel", "prep_kernel",
+                                  "dkdv_sum_kernel")),
               ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")))
     ranges = ("loss_and_grads", "adamw_update")
     by = {k: 0.0 for k, _ in groups} | {"other": 0.0}
     runs = {k: 0 for k, _ in groups} | {"other": 0}
-    span, other = {}, {}
+    span, other, dq_runs = {}, {}, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2860,15 +2901,14 @@ def profile_train_step(dev, cfg, state, n_tiles: int) -> None:
                   if any(x in e.key.lower() for x in keys)), "other")
         by[k] += ms
         runs[k] += e.count
+        dq_runs += e.count if "dq_kernel" in e.key else 0
         if k == "other":
             other[e.key[:50]] = other.get(e.key[:50], 0.0) + ms
     busy = sum(by.values())
     L = cfg.n_layers
-    check(busy == 0.0 or (runs["flash forward"] == 2 * L
-                          and runs["flash backward"] == 3 * L),
-          f"profiled train step: {runs['flash forward']} flash forward and "
-          f"{runs['flash backward']} backward kernel runs, want {2 * L} and "
-          f"{3 * L}")
+    check(busy == 0.0 or (runs["flash forward"] == 2 * L and dq_runs == L),
+          f"profiled train step: {runs['flash forward']} flash forward "
+          f"kernel runs and {dq_runs} dQ passes, want {2 * L} and {L}")
     if busy == 0.0:
         print(f"[phaseL] profiled train step: the profiler recorded no "
               f"device time (breakdown not measured); host clock "
@@ -2908,9 +2948,46 @@ def phase_l(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20)
     fwd_tol = {"float32": dict(atol=2e-5), "bfloat16": dict(atol=2e-2)}
 
-    # ---- (a) the statistics output and the backward kernel
-    worst_abs, worst_rel = 0.0, {"float32": 0.0, "bfloat16": 0.0}
-    timing = None
+    # ---- (a) the statistics output and both backward kernels
+    worst_abs = dict.fromkeys(fa.ROUTES, 0.0)
+    worst_rel = {r: {"float32": 0.0, "bfloat16": 0.0} for r in fa.ROUTES}
+    timing = {}
+
+    def time_bwd(tag, what, q, k, v, po, pm, pl, do, kw):
+        """The backward at one case's shape: kernel, plain version, SDPA's
+        backward (enable_gqa; the yardstick) and the bound."""
+        B, Tq, H, d = q.shape
+        KV, dv = k.shape[2], v.shape[-1]
+        route = fa.flash_route("cuda", q.dtype, k.dtype, d, dv)
+        ms = event_ms(lambda: fa.flash_attention_backward(
+            q, k, v, po, pm, pl, do, **kw), 5)
+        plain_ms = timed(lambda: fa.flash_attention_backward_reference(
+            q, k, v, po, pm, pl, do, **kw))[1]
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=kw["causal"], enable_gqa=True)
+        lib_ms = event_ms(lambda: torch.autograd.grad(
+            lib_o, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), 5)
+        cost = fa.flash_attention_backward_cost(q, k, v, **kw)
+        peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else \
+            PEAK_F32_PER_S
+        b_ms, b_by = bound(cost["bytes"], cost["ops"], peak)
+        timing[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        before = (f"; {FLASH_BWD_CUDA_CORE_MS} ms on the CUDA-core kernel "
+                  f"before the tensor-core one" if tag == "gemma" else "")
+        print(f"[phaseL] flash_attention_backward {what} [{B}, {Tq}, {H} on "
+              f"{KV}, {d}/{dv}] {q.dtype} causal on the {route} route: "
+              f"kernel {ms:.4f} ms (median of 5, CUDA events; one "
+              f"call{before}), plain {plain_ms:.1f} ms (one run), "
+              f"scaled_dot_product_attention's backward (enable_gqa) "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+              f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} GFLOP "
+              f"over {cost['pairs']} kept pairs per head, at the "
+              f"{'bf16' if peak == PEAK_BF16_PER_S else 'f32'} peak)")
+        del qs, ks, vs, lib_o
+
     for what, B, Tq, Tk, H, KV, d, dv, dt, causal, w, off in \
             FLASH_BWD_CASES:
         dtype = getattr(torch, dt)
@@ -2936,15 +3013,20 @@ def phase_l(dev) -> dict:
         e_l = float(((l - pl).abs() / pl).max())
         check(e_m <= 1e-5 and e_l <= 1e-5, f"phase L {what}: statistics "
               f"m {e_m:.3e}, l {e_l:.3e} from the plain ones (bound 1e-5)")
+        before = fa.flash_attention_backward.launches_by_route[route]
         g1 = fa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
         g2 = fa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
         torch.cuda.synchronize()
+        check(fa.flash_attention_backward.launches_by_route[route]
+              == before + 2, f"phase L {what}: backward not on the {route} "
+              f"route")
         check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
               f"phase L {what}: two backward launches differ")
         gp = fa.flash_attention_backward_reference(q, k, v, po, pm, pl, do,
                                                    **kw)
-        rels = []
+        rels, flips = [], []
         for name, a, b in zip(("dq", "dk", "dv"), g1, gp):
+            flips.append(float((a != b).float().mean()))
             a, b = a.float(), b.float()
             check(bool(torch.isfinite(a).all()), f"phase L {what}: {name} "
                   f"not finite")
@@ -2953,51 +3035,37 @@ def phase_l(dev) -> dict:
             check(rel <= FLASH_BWD_TOL[dt], f"phase L {what}: {name} differs "
                   f"from the plain backward by {rel:.3e} of its largest "
                   f"magnitude (bound {FLASH_BWD_TOL[dt]})")
-            worst_abs = max(worst_abs, diff)
+            worst_abs[route] = max(worst_abs[route], diff)
             rels.append(rel)
-        worst_rel[dt] = max(worst_rel[dt], *rels)
+        worst_rel[route][dt] = max(worst_rel[route][dt], *rels)
         print(f"[phaseL] {what} [{B}, {Tq}/{Tk}, {H} on {KV}, {d}/{dv}] {dt} "
               f"causal {causal} window {w} q_offset {off}: forward with "
               f"statistics on the {route} route, o_f32 within {e_o:.3e}, m "
               f"{e_m:.2e}, l {e_l:.2e} of the plain ones ({int(empty.sum())} "
               f"rows without keys), output bit-equal to the serving launch; "
-              f"backward dq/dk/dv within " + "/".join(f"{x:.2e}" for x in rels)
-              + f" of their largest magnitude (bound {FLASH_BWD_TOL[dt]}), "
-              f"the same bits on two launches")
-        if timing is None:           # the first case: Gemma-2B's shape
-            ms = event_ms(lambda: fa.flash_attention_backward(
-                q, k, v, po, pm, pl, do, **kw), 5)
-            fwd_ms = event_ms(lambda: fa.flash_attention_stats(q, k, v, **kw),
-                              10)
-            serve_ms = event_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
-            plain_ms = timed(lambda: fa.flash_attention_backward_reference(
-                q, k, v, po, pm, pl, do, **kw))[1]
-            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                   enable_gqa=True)
-            lib_ms = event_ms(lambda: torch.autograd.grad(
-                lib_o, (qs, ks, vs), do.transpose(1, 2), retain_graph=True),
-                5)
-            cost = fa.flash_attention_backward_cost(q, k, v, **kw)
-            b_ms, b_by = bound(cost["bytes"], cost["ops"], PEAK_BF16_PER_S)
-            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-            print(f"[phaseL] flash_attention_backward [{B}, {Tq}, {H} on "
-                  f"{KV}, {d}] bf16 causal: kernel {ms:.4f} ms (median of 5, "
-                  f"CUDA events; three launches), plain {plain_ms:.1f} ms "
-                  f"(one run), scaled_dot_product_attention's backward "
-                  f"(enable_gqa) {lib_ms:.4f} ms; bound {b_ms:.4f} ms by "
-                  f"{b_by} ({cost['bytes'] / 1e6:.1f} MB, "
-                  f"{cost['ops'] / 1e9:.2f} GFLOP over {cost['pairs']} kept "
-                  f"pairs per head, at the bf16 peak; "
-                  f"{cost['ops'] / PEAK_F32_PER_S * 1e3:.3f} ms at the f32 "
-                  f"peak); the forward with statistics {fwd_ms:.4f} ms, "
-                  f"the serving forward {serve_ms:.4f} ms; "
-                  f"{registers('flash_attention_bwd', 'ILi16E')}")
-            del qs, ks, vs, lib_o
+              f"backward on the {route} route: dq/dk/dv within "
+              + "/".join(f"{x:.2e}" for x in rels)
+              + f" of their largest magnitude (bound {FLASH_BWD_TOL[dt]}; "
+              f"elements that differ from the plain version's "
+              + "/".join(f"{x:.2e}" for x in flips)
+              + "), the same bits on two launches")
+        if what in FLASH_BWD_TIMED:
+            tag = FLASH_BWD_TIMED[what]
+            time_bwd(tag, what, q, k, v, po, pm, pl, do, kw)
+            if tag == "gemma":
+                fwd_ms = event_ms(lambda: fa.flash_attention_stats(
+                    q, k, v, **kw), 10)
+                serve_ms = event_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                                    10)
+                print(f"[phaseL] at Gemma-2B's shape: the forward with "
+                      f"statistics {fwd_ms:.4f} ms, the serving forward "
+                      f"{serve_ms:.4f} ms (medians of 10, CUDA events)")
     del q, k, v, do, o, m, l, po, pm, pl, g1, g2, gp
     torch.cuda.empty_cache()
+    print(f"[phaseL] flash_attention_bwd_tc.cu (nvcc -Xptxas -v): "
+          f"{registers('flash_attention_bwd_tc')}")
+    print(f"[phaseL] flash_attention_bwd.cu (nvcc -Xptxas -v): "
+          f"{registers('flash_attention_bwd')}")
 
     # ---- (b) Gemma-2B at full width and depth, bf16: kernels vs plain
     cfg = get_arch("gemma-2b")
@@ -3026,11 +3094,13 @@ def phase_l(dev) -> dict:
     torch.cuda.synchronize()
     L, n = cfg.n_layers, TRAIN_STEPS
     fwd, bwd = dict(fa.flash_attention.launches_by_route), \
-        fa.flash_attention_backward.launches
-    check(fwd == {"tensor_core": 2 * L * n, "cuda_core": 0} and bwd == L * n,
+        dict(fa.flash_attention_backward.launches_by_route)
+    check(fwd == {"tensor_core": 2 * L * n, "cuda_core": 0}
+          and bwd == {"tensor_core": L * n, "cuda_core": 0}
+          and fa.flash_attention_backward.launches == L * n,
           f"train: forward launches {fwd}, backward {bwd}; want "
-          f"{2 * L * n} on the tensor-core route and {L * n}")
-    bwd_main = bwd
+          f"{2 * L * n} and {L * n} on the tensor-core route")
+    bwd_main = bwd["tensor_core"]
     check(len(res["losses"]) == n and all(np.isfinite(res["losses"])),
           f"train: losses {res['losses']}")
     print(f"[phaseL] python -m repro_torch.launch.train {' '.join(argv)} "
@@ -3041,8 +3111,8 @@ def phase_l(dev) -> dict:
           f"{json.dumps([round(x, 1) for x in res['step_ms']])}), "
           f"{res['tok_s']:,.0f} tok/s, peak device memory "
           f"{res['peak_bytes'] / 2**30:.2f} GiB; launches a step: "
-          f"{2 * L} forward on the tensor-core route and {L} backward "
-          f"(exactly {fwd['tensor_core']} and {bwd} in {n} steps)")
+          f"{2 * L} forward and {L} backward, all on the tensor-core route "
+          f"(exactly {fwd['tensor_core']} and {bwd_main} in {n} steps)")
     profile_train_step(dev, cfg, res["state"], 8)
     del res
     torch.cuda.empty_cache()
@@ -3096,8 +3166,10 @@ def phase_l(dev) -> dict:
         first_loss, last_loss = example.main(EXAMPLE_ARGV
                                              + ["--ckpt-dir", tmp])
     fwd, bwd = dict(fa.flash_attention.launches_by_route), \
-        fa.flash_attention_backward.launches
-    check(fwd == {"tensor_core": 0, "cuda_core": 2 * L * n} and bwd == L * n,
+        dict(fa.flash_attention_backward.launches_by_route)
+    check(fwd == {"tensor_core": 0, "cuda_core": 2 * L * n}
+          and bwd == {"tensor_core": 0, "cuda_core": L * n}
+          and fa.flash_attention_backward.launches == L * n,
           f"100M example: forward launches {fwd}, backward {bwd}")
     check(np.isfinite(last_loss) and last_loss < first_loss,
           f"100M example: loss {first_loss} -> {last_loss} did not fall")
@@ -3106,13 +3178,23 @@ def phase_l(dev) -> dict:
           f"{2 * L} forward and {L} backward launches a step on the CUDA-core "
           f"route; {time.perf_counter() - t0:.1f} s; phase L "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"name": "flash_attention_backward", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/ref.py:201",
-            "launches": bwd_main, "max_abs_err": worst_abs,
-            "max_rel_err_f32": worst_rel["float32"],
-            "max_rel_err_bf16": worst_rel["bfloat16"], **timing,
-            "shape": "gemma-2b [8, 1024, 8 on 1, 256] bf16"}
+    tc, cc = worst_rel["tensor_core"], worst_rel["cuda_core"]
+    return [{"name": "flash_attention_bwd_tc", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+             "replaces": "src/repro/kernels/ref.py:201",
+             "launches": bwd_main, "max_abs_err": worst_abs["tensor_core"],
+             "max_rel_err_bf16": tc["bfloat16"], **timing["gemma"],
+             "shape": "gemma-2b [8, 1024, 8 on 1, 256] bf16",
+             **{f"{k}_{tag}": val for tag in ("zamba2", "mla")
+                for k, val in timing[tag].items()}},
+            {"name": "flash_attention_backward", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/ref.py:201",
+             "launches": bwd["cuda_core"],
+             "max_abs_err": worst_abs["cuda_core"],
+             "max_rel_err_f32": cc["float32"],
+             "max_rel_err_bf16": cc["bfloat16"], **timing["100m"],
+             "shape": "the 100M example [8, 256, 10 on 5, 64] f32"}]
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's `fleet_step`, `grid_conv` and `thermal_conv` CUDA kernels
-against another build of the same kernels, in turns, on one card.
+"""Time the port's `fleet_step`, `grid_conv`, `thermal_conv` and flash
+attention CUDA kernels against another build of the same kernels, in turns,
+on one card.
 
     python3 scripts/kernel_ab.py --against DIR
 
@@ -17,11 +18,20 @@ packages, T = 512), on the 47-tile × 4,096-package peak window (flush 4 of
 Phase B's stream) from its warm state and on serve --stream's first window
 [256, 1, 4,096] (Phase C); `grid_conv` on ``GridPlant(n_tiles=47)`` ×
 90,000 steps; `thermal_conv` on [90,000, 512] (Phase D's main path) and
-[90,000, 47] (the Ponte-Vecchio Γ).  The order is this checkout's build,
-the other, the other, this checkout's; each time is the median of 10
-launches by CUDA events.  The two builds' outputs are compared (max |Δ|,
-bit-exact or not).  Prints one JSON object per window, then the card's
-name and power limit.
+[90,000, 47] (the Ponte-Vecchio Γ).  Flash attention, bf16 at Gemma-2B's
+[8, 1,024, 8 on 1, 256], Zamba2-7B's [8, 1,024, 32, 112] and DeepSeek-V2's
+MLA [2, 1,024, 128, 192/128]: this checkout's route (`flash_route`)
+against the route DIR's sources give the same call — the tensor-core
+forward against DIR's ``flash_attention_tc.cu``, both called through the
+same bare ctypes runner (whose argument struct follows each source: one
+without the ``dv`` field has no d ≠ dv route, so MLA's shape runs DIR's
+CUDA-core ``flash_attention.cu``), the backward against DIR's
+``flash_attention_bwd.cu`` (the CUDA-core backward, the only one before
+the tensor-core kernel), on the plain forward's statistics.  The order is
+this checkout's build, the other, the other, this checkout's; each time is
+the median of 10 launches by CUDA events.  The two builds' outputs are
+compared (max |Δ|, bit-exact or not).  Prints one JSON object per window,
+then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -36,6 +46,10 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 REPS = 10   # launches per timing, as chip_smoke.py times the main path
+# flash attention's windows: (label, B, T, H, KV, d, dv)
+FLASH_AB = (("gemma-2b", 8, 1024, 8, 1, 256, 256),
+            ("zamba2-7b", 8, 1024, 32, 32, 112, 112),
+            ("deepseek-v2 mla", 2, 1024, 128, 128, 192, 128))
 
 
 def build_other(src: Path) -> Path:
@@ -50,11 +64,13 @@ def build_other(src: Path) -> Path:
     return out
 
 
-def in_turns(name: str, run, other: Path, run_other=None) -> dict:
+def in_turns(name: str, run, other: Path | None, run_other=None,
+             loaded: bool = False) -> dict:
     """``run()`` on this checkout's library and on the one at ``other`` (or
-    ``run_other()``, where the other build has another C interface), in
-    the order this, other, other, this; times and the outputs'
-    agreement."""
+    ``run_other()``, where the other build has another C interface or is
+    reached by another call — with ``other`` loaded as ``name`` if
+    ``loaded``), in the order this, other, other, this; times and the
+    outputs' agreement."""
     import contextlib
 
     import torch
@@ -66,8 +82,10 @@ def in_turns(name: str, run, other: Path, run_other=None) -> dict:
     outs = {}
     for who in ("this", "other", "other", "this"):
         f = run_other if who == "other" and run_other else run
-        with (contextlib.nullcontext() if who == "this" or run_other
-              else _build.loaded_from(name, other)):
+        swap = who == "other" and other is not None and (
+            run_other is None or loaded)
+        with (_build.loaded_from(name, other) if swap
+              else contextlib.nullcontext()):
             outs[who] = f()
             torch.cuda.synchronize()
             times[who].append(event_ms(f, REPS))
@@ -146,6 +164,90 @@ def dense_conv(lib_path: Path):
     return run
 
 
+def tc_forward(lib_path: Path, source: str):
+    """A causal-forward runner for a ``flash_attention_tc.cu`` build, its
+    argument struct read from its source (one without the ``dv`` field
+    takes d = dv only).  Both builds go through such a runner, so that the
+    host's share of a timing is the same for both."""
+    import ctypes
+
+    import torch
+
+    has_dv = "d, dv," in source
+    lib = ctypes.CDLL(str(lib_path))
+
+    class Args(ctypes.Structure):
+        _fields_ = ([(f, ctypes.c_int) for f in (
+            "B", "Tq", "Tk", "H", "KV", "d", *(("dv",) if has_dv else ()),
+            "causal", "window", "q_offset")] + [("scale", ctypes.c_float)])
+
+    fn = lib.flash_attention_tc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(Args)] + [ctypes.c_void_p] * 5
+
+    def run(q, k, v):
+        B, Tq, H, d = q.shape
+        dv = v.shape[-1]
+        a = Args(B=B, Tq=Tq, Tk=k.shape[1], H=H, KV=k.shape[2], d=d,
+                 causal=1, window=0, q_offset=0, scale=float(d ** -0.5))
+        if has_dv:
+            a.dv = dv
+        out = torch.empty((B, Tq, H, dv), dtype=q.dtype, device=q.device)
+        err = fn(ctypes.byref(a), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention_tc ({lib_path.name}): "
+                               f"cudaError_t {err}")
+        return out
+
+    return run, has_dv
+
+
+def flash_windows(dev, against: Path):
+    """(library name, label, this, the other build's path or None, other)
+    of each flash attention window whose other build DIR holds: ``other``
+    runs with that build loaded under the name, or calls its own."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    from repro_torch.kernels import _build
+
+    fwd_tc = against / "flash_attention_tc.cu"
+    fwd_cc = against / "flash_attention.cu"
+    bwd_cc = against / "flash_attention_bwd.cu"
+    this_tc, _ = tc_forward(_build.build("flash_attention_tc"),
+                            (_build.CSRC / "flash_attention_tc.cu")
+                            .read_text())
+    tc, tc_dv = (tc_forward(build_other(fwd_tc), fwd_tc.read_text())
+                 if fwd_tc.is_file() else (None, False))
+    cc = build_other(fwd_cc) if fwd_cc.is_file() else None
+    bwd = build_other(bwd_cc) if bwd_cc.is_file() else None
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for label, B, T, H, KV, d, dv in FLASH_AB:
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, k, v, do = r(B, T, H, d), r(B, T, KV, d), r(B, T, KV, dv), \
+            r(B, T, H, dv)
+        this = lambda: (this_tc(q, k, v),)
+        if tc and (d == dv or tc_dv):
+            yield ("flash_attention_tc", label, this, None,
+                   lambda: (tc(q, k, v),))
+        elif cc:
+            # the other build has no tensor-core route for d ≠ dv: its
+            # route was the CUDA-core kernel
+            yield ("flash_attention", label, this, cc,
+                   lambda: (fa._launch(q, k, v, True, 0, 0, d ** -0.5),))
+        if bwd:
+            po, pm, pl = fa.flash_attention_stats_reference(q, k, v)
+            yield ("flash_attention_bwd", label,
+                   lambda: fa.flash_attention_backward(q, k, v, po, pm, pl,
+                                                       do),
+                   bwd, lambda: fa._launch_bwd(q, k, v, po, pm, pl, do, True,
+                                               0, 0, d ** -0.5))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, required=True)
@@ -201,6 +303,9 @@ def main() -> None:
                 other, legacy and (lambda: legacy(p, g, poles.decay,
                                                   poles.gain)))
                 | {"window": [90_000, n]})
+    for name, label, this, path, other in flash_windows(dev, a.against):
+        results.append(in_turns(name, this, path, other, loaded=True)
+                       | {"window": label})
     for r in results:
         print(json.dumps(r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -86,6 +86,9 @@ class TelemetryLog:
             for r in self._rows:
                 f.write(json.dumps(r, default=_array_list) + "\n")
 
+    # the reference's alias (its launch/train.py --telemetry-out calls dump)
+    dump = dump_jsonl
+
 
 def _array_list(v: Any) -> Any:
     if isinstance(v, np.ndarray):

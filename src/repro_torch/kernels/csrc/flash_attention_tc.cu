@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel `repro.kernels.flash_attention.flash_attention`
 // (Pallas body `_kernel`, src/repro/kernels/flash_attention.py) for the
-// serving path's inputs: q [B, Tq, H, d], k and v [B, Tk, KV, d], all bf16,
-// d ∈ {64, 112, 128, 256} (every head dim in configs/).  Same function as
+// serving path's inputs: q [B, Tq, H, d], k [B, Tk, KV, d] and v [B, Tk,
+// KV, dv], all bf16, (d, dv) ∈ {(64, 64), (112, 112), (128, 128), (256,
+// 256), (192, 128)} (every head dim in configs/; the last is MLA's q/k
+// 192 = 128 + 64 of rope with v 128).  Same function as
 // flash_attention.cu, which keeps every other input (f32, mixed types,
 // other head dims); the wrapper routes by dtype and shape alone
 // (`flash_route` in flash_attention.py).  The plain version is
@@ -18,7 +20,8 @@
 // at Zamba2-7B's prefill [8, 1,024, 32, 112] about 235 MB, 0.070 ms at
 // 3.35 TB/s; the causal half of the two products is ~61 GFLOP, 0.061 ms at
 // the 989 TFLOP/s bf16 tensor-core peak.  Gemma-2B's [8, 1,024, 8 on 1,
-// 256] is bound by its 34.5 GFLOP (0.035 ms).  The CUDA-core kernel spent
+// 256] is bound by its 34.5 GFLOP (0.035 ms); DeepSeek-V2's MLA [2, 1,024,
+// 128, 192/128] by its 335 MB (0.100 ms).  The CUDA-core kernel spent
 // ~1 ms of f32 FMAs at best on Zamba2's work; the tensor cores are the way
 // to the bound.
 //
@@ -43,9 +46,11 @@
 //     innermost) in boxes of 64 rows × 64 bf16 (128 bytes) with 128-byte
 //     swizzle, so each box lands in wgmma's canonical layout.  d = 112 is
 //     two boxes; TMA fills lanes 112–127 of the second with zeros (past the
-//     tensor's innermost extent), as it fills rows past Tq or Tk.  The Q
-//     tiles load once; K and V tiles of 64 keys go through a ring of 3
-//     stages (2 at d = 256: shared memory) with full / empty mbarriers.
+//     tensor's innermost extent), as it fills rows past Tq or Tk.  K and V
+//     have their own box counts (MLA: 3 across d = 192, 2 across dv =
+//     128).  The Q tiles load once; K and V tiles of 64 keys go through a
+//     ring of 3 stages (2 at d = 256: shared memory; 168 KB at MLA's dims)
+//     with full / empty mbarriers.
 //   * Scores: S = Q·Kᵀ by wgmma m64n64k16, both operands from shared
 //     memory (K-major), f32 accumulate; the descriptor steps 32 bytes per
 //     k16 inside a swizzled box and one box per 64 of d.
@@ -59,7 +64,8 @@
 //   * Values: P is rounded to bf16 in registers and fed as wgmma's register
 //     A operand (the accumulator layout of S is the A layout of P·V); V is
 //     the shared-memory B operand, MN-major (transpose flag), one wgmma of
-//     N = 64 per 64-wide box of d (N = 48 for d = 112's last box).
+//     N = 64 per 64-wide box of dv (N = 48 for dv = 112's last box); the
+//     accumulator and the epilogue are 64 × dv.
 //   * Registers: setmaxnreg lowers the producer to 24 and raises the
 //     consumers to 240 (d = 256 holds a 64×256 f32 accumulator: 128 a
 //     thread); 128 × (168 − 24) = 2 × 128 × (240 − 168).
@@ -74,7 +80,7 @@
 //   * Epilogue: normalise by max(l, 1e-20), store bf16 pairs.
 //   * Statistics (the training path, `flash_attention_tc_stats_launch`):
 //     the kernel instantiated with STATS also stores the f32 output o32
-//     [B, Tq, H, d] and each row's final running max and sum, f32 [B, H,
+//     [B, Tq, H, dv] and each row's final running max and sum, f32 [B, H,
 //     Tq], by lane 0 of the row's quad after the quad's l reduction.  m is
 //     kept in log2 units here; it is stored in natural units (m·ln 2), and
 //     a row the mask leaves without keys keeps NEG_INF, as the plain
@@ -92,7 +98,7 @@
 #include <stdint.h>
 
 struct FlashTcArgs {
-  int B, Tq, Tk, H, KV, d, causal, window, q_offset;
+  int B, Tq, Tk, H, KV, d, dv, causal, window, q_offset;
   float scale;
 };
 
@@ -106,19 +112,23 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D_>
+template <int D_, int DV_>
 struct Cfg {
-  static constexpr int D = D_;
+  static constexpr int D = D_, DV = DV_;
   static constexpr int NB = (D + BOX - 1) / BOX;     // boxes across d
-  static constexpr int LAST = D - BOX * (NB - 1);    // width of the last: 64 or 48
+  static constexpr int NBV = (DV + BOX - 1) / BOX;   // boxes across dv
+  static constexpr int LAST = DV - BOX * (NBV - 1);  // width of dv's last: 64 or 48
   static constexpr int CW = 2;                       // consumer warpgroups
   static constexpr int THREADS = (CW + 1) * 128;     // + the producer group
   static constexpr int PRODUCER_WARP = CW * 4;
-  static constexpr int STAGES = D > 128 ? 2 : 3;
   static constexpr int Q_BYTES = CW * NB * BOX_BYTES;
-  static constexpr int KV_BYTES = NB * BOX_BYTES;    // one K or V tile
+  static constexpr int K_BYTES = NB * BOX_BYTES;     // one K tile
+  static constexpr int V_BYTES = NBV * BOX_BYTES;    // one V tile
+  // 3 stages where they fit the 227 KB a block may use, else 2
+  static constexpr int STAGES =
+      1024 + Q_BYTES + 3 * (K_BYTES + V_BYTES) + 8 * 7 <= 232448 ? 3 : 2;
   static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (2 * STAGES + 1);
+      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (2 * STAGES + 1);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -332,16 +342,16 @@ __device__ __forceinline__ void issue_scores(float (&s)[BK / 2], uint32_t sQw,
 
 // O += P·V for one V tile, issued and committed
 template <class C>
-__device__ __forceinline__ void issue_values(float (&o)[C::NB][32],
+__device__ __forceinline__ void issue_values(float (&o)[C::NBV][32],
                                              uint32_t (&p)[BK / 16][4],
                                              uint32_t sVs) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int nb = 0; nb < C::NB; ++nb) {
+    for (int nb = 0; nb < C::NBV; ++nb) {
       const uint64_t dv = sw128_desc(sVs + nb * BOX_BYTES + kk * 16 * 128);
-      if (nb < C::NB - 1 || C::LAST == 64)
+      if (nb < C::NBV - 1 || C::LAST == 64)
         wgmma_rs_n64(o[nb], p[kk], dv);
       else
         wgmma_rs_n48(o[nb], p[kk], dv);
@@ -434,12 +444,13 @@ __global__ void __launch_bounds__(C::THREADS, 1)
                     const FlashTcArgs a, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ o32, float* __restrict__ m_out,
                     float* __restrict__ l_out) {
-  constexpr int D = C::D, NB = C::NB, CW = C::CW;
+  constexpr int D = C::D, DV = C::DV, NB = C::NB, NBV = C::NBV,
+                CW = C::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + C::Q_BYTES;
-  const uint32_t sV = sK + C::STAGES * C::KV_BYTES;
-  const uint32_t bars = sV + C::STAGES * C::KV_BYTES;
+  const uint32_t sV = sK + C::STAGES * C::K_BYTES;
+  const uint32_t bars = sV + C::STAGES * C::V_BYTES;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
   const uint32_t qbar = bars + 8u * (2 * C::STAGES);
@@ -497,14 +508,15 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       int stage = 0, phase = 0;
       for (int kb = blo; kb < bhi; ++kb) {
         mbar_wait(empty(stage), phase ^ 1);
-        mbar_expect_tx(full(stage), 2 * C::KV_BYTES);
+        mbar_expect_tx(full(stage), C::K_BYTES + C::V_BYTES);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          tma_load(sK + stage * C::KV_BYTES + nb * BOX_BYTES, &tmk,
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load(sK + stage * C::K_BYTES + nb * BOX_BYTES, &tmk,
                    full(stage), nb * BOX, kvh, kb * BK, b);
-          tma_load(sV + stage * C::KV_BYTES + nb * BOX_BYTES, &tmv,
+#pragma unroll
+        for (int nb = 0; nb < NBV; ++nb)
+          tma_load(sV + stage * C::V_BYTES + nb * BOX_BYTES, &tmv,
                    full(stage), nb * BOX, kvh, kb * BK, b);
-        }
         if (++stage == C::STAGES) {
           stage = 0;
           phase ^= 1;
@@ -519,11 +531,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     const uint32_t sQw = sQ + w * NB * BOX_BYTES;
     const RowCtx rc{a.q_offset + pos0[w] + r0, lane, a.scale * LOG2E};
 
-    float o[NB][32], s[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f},
+    float o[NBV][32], s[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f},
         c[2];
     uint32_t p[BK / 16][4];
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
 
@@ -538,7 +550,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     int stage = 0, phase = 0;
     for (int kb = blo; kb < bhi; ++kb) {
       mbar_wait(full(stage), phase);
-      issue_scores<D>(s, sQw, sK + stage * C::KV_BYTES);
+      issue_scores<D>(s, sQw, sK + stage * C::K_BYTES);
       wgmma_wait<0>();
       fence_all(s);
       // the mask only where the tile is not kept whole by every row of the
@@ -552,11 +564,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       rescale(o, c);
       pack_p(p, s);
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) fence_all(o[nb]);
-      issue_values<C>(o, p, sV + stage * C::KV_BYTES);
+      for (int nb = 0; nb < NBV; ++nb) fence_all(o[nb]);
+      issue_values<C>(o, p, sV + stage * C::V_BYTES);
       wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) fence_all(o[nb]);
+      for (int nb = 0; nb < NBV; ++nb) fence_all(o[nb]);
       fence_all(p);
       mbar_arrive_if(empty(stage), lane == 0);
       if (++stage == C::STAGES) {
@@ -576,14 +588,14 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         const int pos = pos0[w] + r0 + 8 * r;
         if (pos >= a.Tq) continue;
         const float norm = fmaxf(l[r], 1e-20f);
-        const size_t base = ((size_t(b) * a.Tq + pos) * a.H + head[w]) * D;
+        const size_t base = ((size_t(b) * a.Tq + pos) * a.H + head[w]) * DV;
         __nv_bfloat16* row = out + base;
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+        for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int col = nb * BOX + 8 * j + 2 * (lane & 3);
-            if (col < D) {
+            if (col < DV) {
               const float lo = o[nb][4 * j + 2 * r] / norm,
                           hi = o[nb][4 * j + 2 * r + 1] / norm;
               *reinterpret_cast<__nv_bfloat162*>(row + col) =
@@ -652,7 +664,7 @@ int launch(const FlashTcArgs& a, const void* q, const void* k, const void* v,
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, a.B, a.Tq, a.H, a.d, ROWS) ||
       !tensor_map(&mk, k, a.B, a.Tk, a.KV, a.d, BK) ||
-      !tensor_map(&mv, v, a.B, a.Tk, a.KV, a.d, BK))
+      !tensor_map(&mv, v, a.B, a.Tk, a.KV, a.dv, BK))
     return int(cudaErrorNotSupported);
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<C, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -673,22 +685,30 @@ int dispatch(const FlashTcArgs* a, const void* q, const void* k,
              void* stream) {
   if (a->B < 1 || a->Tq < 1 || a->Tk < 1 || a->H < 1 || a->KV < 1 ||
       a->H % a->KV || a->window < 0 || a->B > 65535 || a->H > 65535 ||
-      (a->d != 64 && a->d != 112 && a->d != 128 && a->d != 256) ||
+      !((a->d == a->dv && (a->d == 64 || a->d == 112 || a->d == 128 ||
+                            a->d == 256)) ||
+        (a->d == 192 && a->dv == 128)) ||
       ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(out) |
         uintptr_t(o32)) & 15))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a->d) {
-    case 64: return launch<Cfg<64>, STATS>(*a, q, k, v, out, o32, m, l, st);
-    case 112: return launch<Cfg<112>, STATS>(*a, q, k, v, out, o32, m, l, st);
-    case 128: return launch<Cfg<128>, STATS>(*a, q, k, v, out, o32, m, l, st);
-    default: return launch<Cfg<256>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 64: return launch<Cfg<64, 64>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 112:
+      return launch<Cfg<112, 112>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 128:
+      return launch<Cfg<128, 128>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    case 192:
+      return launch<Cfg<192, 128>, STATS>(*a, q, k, v, out, o32, m, l, st);
+    default:
+      return launch<Cfg<256, 256>, STATS>(*a, q, k, v, out, o32, m, l, st);
   }
 }
 
 }  // namespace
 
-// q, k, v, out bf16, contiguous, 16-byte aligned (the wrapper's contract).
+// q, k, v, out bf16, contiguous, 16-byte aligned (the wrapper's contract);
+// out [B, Tq, H, dv].
 // Returns a cudaError_t; cudaErrorInvalidValue for arguments it does not
 // take, cudaErrorNotSupported if a tensor map cannot be encoded.
 extern "C" int flash_attention_tc_launch(const FlashTcArgs* a, const void* q,
@@ -697,7 +717,7 @@ extern "C" int flash_attention_tc_launch(const FlashTcArgs* a, const void* q,
   return dispatch<false>(a, q, k, v, out, nullptr, nullptr, nullptr, stream);
 }
 
-// The same with the statistics: o32 [B, Tq, H, d] (16-byte aligned), m and
+// The same with the statistics: o32 [B, Tq, H, dv] (16-byte aligned), m and
 // l [B, H, Tq], all f32.
 extern "C" int flash_attention_tc_stats_launch(const FlashTcArgs* a,
                                                const void* q, const void* k,

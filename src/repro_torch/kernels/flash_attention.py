@@ -7,9 +7,10 @@ Port of the TPU kernel `repro.kernels.flash_attention.flash_attention`
     two hand-written Hopper kernels, as `flash_route` says, or raises; on
     CPU tensors it runs `flash_attention_reference`.
       - ``tensor_core`` (``csrc/flash_attention_tc.cu``): bf16 q, k and v
-        with d = dv ∈ {64, 112, 128, 256} — the serving path.  wgmma on
-        the tensor cores, TMA loads into a K/V ring, a producer warp and
-        two consumer warpgroups.
+        with (d, dv) in `TC_DIMS` — d = dv ∈ {64, 112, 128, 256} and MLA's
+        (192, 128): the serving path.  wgmma on the tensor cores, TMA
+        loads into a K/V ring, a producer warp and two consumer
+        warpgroups.
       - ``cuda_core`` (``csrc/flash_attention.cu``): every other input
         (f32 or mixed types, other head dims).  f32 FMAs on the CUDA
         cores, no TF32: the f32 bounds rest on it.
@@ -31,11 +32,16 @@ The training path (the gradient of `ref.make_flash`, the reference's
     (out, o_f32, m, l).  On a card the route's kernel with its optional
     statistics output (``launches_by_route`` counts it as a forward
     launch); on the CPU `flash_attention_stats_reference`.
-  * `flash_attention_backward` — dq, dk, dv.  On a card the hand-written
-    ``csrc/flash_attention_bwd.cu`` (``flash_attention_backward.launches``
-    counts its calls: three kernel launches each); on the CPU
-    `flash_attention_backward_reference`, `make_flash`'s ``bwd`` step by
-    step.
+  * `flash_attention_backward` — dq, dk, dv.  On a card one of two
+    hand-written kernels by the same rule as the forward (`flash_route`):
+    ``tensor_core`` (``csrc/flash_attention_bwd_tc.cu``: wgmma, TMA, p and
+    ds in three bf16 parts) or ``cuda_core``
+    (``csrc/flash_attention_bwd.cu``: f32 FMAs).  Each call is three kernel
+    launches (four where the tensor-core dK/dV pass splits the query
+    heads); ``flash_attention_backward.launches`` counts calls,
+    ``flash_attention_backward.launches_by_route`` each route's.  On the
+    CPU `flash_attention_backward_reference`, `make_flash`'s ``bwd`` step
+    by step.
 
 Semantics kept from the reference: GQA/MQA through kv_head = h // (H/KV);
 causal and sliding-window masks from global positions, queries shifted by
@@ -56,19 +62,21 @@ from repro_torch.kernels.ref import NEG_INF, keep_mask
 
 _MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the tensor-core kernel takes (every one in configs/)
+# head dims d = dv the tensor-core kernels take, and every (d, dv) pair
+# they take: those and MLA's q/k 192 with v 128 (every pair in configs/)
 TC_HEAD_DIMS = (64, 112, 128, 256)
+TC_DIMS = frozenset({(d, d) for d in TC_HEAD_DIMS} | {(192, 128)})
 ROUTES = ("tensor_core", "cuda_core")
 
 
 def flash_route(device_type: str, q_dtype, kv_dtype, d: int, dv: int) -> str:
-    """Which version `flash_attention` runs for these inputs: ``"plain"``
-    on the CPU; on a card ``"tensor_core"`` when q, k and v are all bf16
-    and d = dv is one of `TC_HEAD_DIMS`, else ``"cuda_core"``."""
+    """Which version `flash_attention` and `flash_attention_backward`
+    run for these inputs: ``"plain"`` on the CPU; on a card
+    ``"tensor_core"`` when q, k and v are all bf16 and (d, dv) is one of
+    `TC_DIMS`, else ``"cuda_core"``."""
     if device_type == "cpu":
         return "plain"
-    if (q_dtype == kv_dtype == torch.bfloat16 and d == dv
-            and d in TC_HEAD_DIMS):
+    if q_dtype == kv_dtype == torch.bfloat16 and (d, dv) in TC_DIMS:
         return "tensor_core"
     return "cuda_core"
 
@@ -143,6 +151,8 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_route.update(dict.fromkeys(ROUTES, 0))
     flash_attention_backward.launches = 0
+    flash_attention_backward.launches_by_route.update(
+        dict.fromkeys(ROUTES, 0))
 
 
 class _FlashArgs(ctypes.Structure):
@@ -195,8 +205,8 @@ class _FlashTcArgs(ctypes.Structure):
     """Mirrors ``struct FlashTcArgs`` in csrc/flash_attention_tc.cu."""
 
     _fields_ = ([(f, ctypes.c_int) for f in (
-        "B", "Tq", "Tk", "H", "KV", "d", "causal", "window", "q_offset")]
-        + [("scale", ctypes.c_float)])
+        "B", "Tq", "Tk", "H", "KV", "d", "dv", "causal", "window",
+        "q_offset")] + [("scale", ctypes.c_float)])
 
 
 def _aligned(x):
@@ -217,11 +227,11 @@ def _launch_tc(q, k, v, causal, window, q_offset, scale, stats=False):
                    + [ctypes.c_void_p] * (8 if stats else 5))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, d = q.shape
-    Tk, KV = k.shape[1], k.shape[2]
-    a = _FlashTcArgs(B=B, Tq=Tq, Tk=Tk, H=H, KV=KV, d=d,
+    Tk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    a = _FlashTcArgs(B=B, Tq=Tq, Tk=Tk, H=H, KV=KV, d=d, dv=dv,
                      causal=int(bool(causal)), window=int(window),
                      q_offset=q_offset, scale=scale)
-    out = torch.empty((B, Tq, H, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Tq, H, dv), dtype=q.dtype, device=q.device)
     extra = _stats_outputs(q, v) if stats else ()
     err = fn(ctypes.byref(a), q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), *(t.data_ptr() for t in extra),
@@ -381,10 +391,13 @@ def flash_attention_backward(q, k, v, o, m, l, do, *, causal: bool = True,
                              scale=None):
     """(dq, dk, dv) of `flash_attention` from the forward's saved
     (q, k, v, o_f32, m, l) and the output's gradient ``do`` (made
-    contiguous here: autograd may hand it over strided).  On a card
-    ``csrc/flash_attention_bwd.cu`` (three launches: D = Σ do·o, the dK/dV
-    pass, the dQ pass; counted once in ``flash_attention_backward.
-    launches``) or raises; on the CPU the plain version."""
+    contiguous here: autograd may hand it over strided).  On a card the
+    kernel `flash_route` names — ``csrc/flash_attention_bwd_tc.cu`` or
+    ``csrc/flash_attention_bwd.cu``, three launches each (the row pass,
+    the dK/dV pass, the dQ pass; a fourth adds the tensor-core dK/dV
+    pass's partial sums where it splits the query heads), counted once in
+    ``flash_attention_backward.launches`` and in its route's
+    ``launches_by_route`` — or raises; on the CPU the plain version."""
     do = do.contiguous()
     _check(q, k, v, q_offset)
     B, Tq, H, d = q.shape
@@ -406,16 +419,21 @@ def flash_attention_backward(q, k, v, o, m, l, do, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on cuda or cpu, "
                          f"got {q.device}")
-    grads = _launch_bwd(q, k, v, o, m, l, do, causal, window, q_offset,
-                        _scale(d, scale))
+    route = flash_route("cuda", q.dtype, k.dtype, d, dv)
+    launch = _launch_bwd_tc if route == "tensor_core" else _launch_bwd
+    grads = launch(q, k, v, o, m, l, do, causal, window, q_offset,
+                   _scale(d, scale))
     flash_attention_backward.launches += 1
+    flash_attention_backward.launches_by_route[route] += 1
     return grads
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _launch_bwd(q, k, v, o, m, l, do, causal, window, q_offset, scale):
+    """The CUDA-core backward: (dq, dk, dv)."""
     from repro_torch.kernels import _build
 
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
@@ -435,6 +453,44 @@ def _launch_bwd(q, k, v, o, m, l, do, causal, window, q_offset, scale):
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch "
                            f"failed: cudaError_t {err}")
+    return dq, dk, dvv
+
+
+class _FlashBwdTcArgs(ctypes.Structure):
+    """Mirrors ``struct FlashBwdTcArgs`` in csrc/flash_attention_bwd_tc.cu."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "B", "Tq", "Tk", "H", "KV", "d", "dv", "causal", "window",
+        "q_offset")] + [("scale", ctypes.c_float)])
+
+
+def _launch_bwd_tc(q, k, v, o, m, l, do, causal, window, q_offset, scale):
+    """The tensor-core backward: (dq, dk, dv), with a row-record scratch
+    of the library's size."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention_bwd_tc")
+    fn = lib.flash_attention_bwd_tc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_FlashBwdTcArgs)] + [ctypes.c_void_p] * 12
+    size = lib.flash_attention_bwd_tc_scratch_floats
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.POINTER(_FlashBwdTcArgs)]
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
+    B, Tq, H, d = q.shape
+    Tk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    a = _FlashBwdTcArgs(B=B, Tq=Tq, Tk=Tk, H=H, KV=KV, d=d, dv=dv,
+                        causal=int(bool(causal)), window=int(window),
+                        q_offset=q_offset, scale=scale)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    rec = torch.empty(size(ctypes.byref(a)), dtype=torch.float32,
+                      device=q.device)
+    err = fn(ctypes.byref(a), *(t.data_ptr() for t in (
+        q, k, v, o, m, l, do, rec, dq, dk, dvv)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention tensor-core backward kernel "
+                           f"launch failed: cudaError_t {err}")
     return dq, dk, dvv
 
 

@@ -699,13 +699,9 @@ def test_cuda_flash_other_inputs_take_the_cuda_core_route(cuda, q_dtype,
                                atol=FLASH_ATOL[q_dtype])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-def test_cuda_flash_mla_head_dims_take_the_cuda_core_route(cuda, dtype,
-                                                          causal):
+def _mla_flash(cuda, dtype, causal, route):
     """MLA's q/k head dim 192 with v head dim 128 and its explicit scale:
-    one launch on the CUDA-core route, within the reference's bound."""
+    one launch on ``route``, within the reference's bound."""
     g = torch.Generator().manual_seed(192)
     q, k = (torch.randn((2, 300, 8, 192), generator=g).to(cuda, dtype)
             for _ in range(2))
@@ -713,13 +709,31 @@ def test_cuda_flash_mla_head_dims_take_the_cuda_core_route(cuda, dtype,
     before = dict(tfa.flash_attention.launches_by_route)
     out = tfa.flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches_by_route["cuda_core"] == \
-        before["cuda_core"] + 1
+    assert tfa.flash_attention.launches_by_route == {
+        r: n + (r == route) for r, n in before.items()}
     assert out.shape == (2, 300, 8, 128) and out.dtype == dtype
     ref = tfa.flash_attention_reference(q, k, v, causal=causal,
                                         scale=192 ** -0.5)
     np.testing.assert_allclose(np_(out.float()), np_(ref.float()),
                                atol=FLASH_ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_mla_head_dims_take_the_cuda_core_route(cuda, dtype,
+                                                          causal):
+    """f32 at MLA's head dims: the CUDA-core kernel."""
+    _mla_flash(cuda, dtype, causal, "cuda_core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_mla_head_dims_take_the_tensor_core_route_in_bf16(
+        cuda, causal):
+    """bf16 at MLA's head dims: the tensor-core kernel (d 192 in three
+    boxes, dv 128 in two)."""
+    _mla_flash(cuda, torch.bfloat16, causal, "tensor_core")
 
 
 @pytest.mark.cuda
@@ -894,14 +908,18 @@ def test_cuda_service_flush_records_match_broadcast(cuda):
     (torch.bfloat16, 1, 128, 128, 8, 8, 192, 128, 0, 0),   # MLA's d != dv
     (torch.float32, 2, 200, 200, 10, 5, 64, 64, 0, 0),     # the 100M example
     (torch.float32, 1, 64, 200, 2, 1, 32, 32, 8, 300),     # rows left empty
+    (torch.bfloat16, 1, 64, 200, 4, 1, 128, 128, 8, 300),  # rows left empty
+    (torch.bfloat16, 2, 130, 130, 4, 2, 96, 96, 0, 0),     # no tc pair
 ])
 def test_cuda_flash_backward_matches_plain_version(cuda, dtype, B, Tq, Tk,
                                                    H, KV, d, dv, window,
                                                    q_offset):
     """The statistics forward against the plain statistics (its output the
-    serving launch's bits) and the backward kernel against the plain
-    backward: each gradient within 1e-5 (f32) or 5e-3 (bf16) of its
-    largest magnitude, the same bits on two launches."""
+    serving launch's bits) and the backward kernel of the route
+    `flash_route` names (the tensor-core one for bf16 at its pairs, else
+    the CUDA-core one) against the plain backward: each gradient within
+    1e-5 (f32) or 5e-3 (bf16) of its largest magnitude, the same bits on
+    two launches."""
     g = torch.Generator(device=cuda).manual_seed(0)
     r = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v, do = r(B, Tq, H, d), r(B, Tk, KV, d), r(B, Tk, KV, dv), \
@@ -915,9 +933,13 @@ def test_cuda_flash_backward_matches_plain_version(cuda, dtype, B, Tq, Tk,
                                atol=2e-5 if dtype == torch.float32 else 2e-2)
     torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
     before = tfa.flash_attention_backward.launches
+    routes = dict(tfa.flash_attention_backward.launches_by_route)
+    route = tfa.flash_route("cuda", dtype, dtype, d, dv)
     g1 = tfa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
     g2 = tfa.flash_attention_backward(q, k, v, po, pm, pl, do, **kw)
     assert tfa.flash_attention_backward.launches == before + 2
+    assert tfa.flash_attention_backward.launches_by_route == {
+        r: n + 2 * (r == route) for r, n in routes.items()}
     want = tfa.flash_attention_backward_reference(q, k, v, po, pm, pl, do,
                                                   **kw)
     bound = 1e-5 if dtype == torch.float32 else 5e-3
@@ -936,8 +958,32 @@ def test_cuda_flash_attention_with_grad_launches_both_kernels(cuda):
     out.float().square().sum().backward()
     assert tfa.flash_attention.launches_by_route["tensor_core"] == 1
     assert tfa.flash_attention_backward.launches == 1
+    assert tfa.flash_attention_backward.launches_by_route == {
+        "tensor_core": 1, "cuda_core": 0}
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_raises_when_its_kernel_does_not_load(
+        cuda, monkeypatch):
+    """No fallback: bf16 at a tensor-core pair whose backward kernel fails
+    to load raises, and neither the CUDA-core kernel nor the plain version
+    runs in its place."""
+    from repro_torch.kernels import _build
+
+    def refuse(name):
+        raise RuntimeError(f"{name}: no library")
+
+    r = lambda *s: torch.randn(s, device=cuda).to(torch.bfloat16)
+    q, k, v, do = r(1, 64, 2, 128), r(1, 64, 1, 128), r(1, 64, 1, 128), \
+        r(1, 64, 2, 128)
+    po, pm, pl = tfa.flash_attention_stats_reference(q, k, v)
+    routes = dict(tfa.flash_attention_backward.launches_by_route)
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_tc"):
+        tfa.flash_attention_backward(q, k, v, po, pm, pl, do)
+    assert tfa.flash_attention_backward.launches_by_route == routes
 
 
 @pytest.mark.cuda
@@ -970,6 +1016,7 @@ def test_cuda_train_step_kernels_match_plain_versions(cuda):
     L = cfg.n_layers
     assert tfa.flash_attention.launches_by_route["tensor_core"] == 2 * L
     assert tfa.flash_attention_backward.launches == L
+    assert tfa.flash_attention_backward.launches_by_route["tensor_core"] == L
     saved = tfa.flash_attention_stats, tfa.flash_attention_backward
     tfa.flash_attention_stats = lambda q, k, v, **kw: (
         lambda o, m, l: (o.to(q.dtype), o, m, l))(

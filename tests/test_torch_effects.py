@@ -164,6 +164,25 @@ def test_telemetry_budget_and_log(tmp_path):
     assert len(lines) == 10 and json.loads(lines[0])["step"] == 15
 
 
+def test_telemetry_dump_writes_the_lines_dump_jsonl_writes(tmp_path):
+    """`TelemetryLog.dump` is the reference's alias of `dump_jsonl`: the
+    same JSON lines, which are the reference log's for the same records."""
+    tlog, jlog = ttelemetry.TelemetryLog(capacity=4), \
+        jtelemetry.TelemetryLog(capacity=4)
+    for i in range(6):
+        fields = dict(loss=0.5 * i, temps=np.arange(3.0) + i,
+                      frac=np.float32(0.25))
+        tlog.record(i, **fields)
+        jlog.record(i, **fields)
+    tlog.dump(str(tmp_path / "dump.jsonl"))
+    tlog.dump_jsonl(str(tmp_path / "dump_jsonl.jsonl"))
+    jlog.dump(str(tmp_path / "ref.jsonl"))
+    got = (tmp_path / "dump.jsonl").read_text()
+    assert got == (tmp_path / "dump_jsonl.jsonl").read_text()
+    assert got == (tmp_path / "ref.jsonl").read_text()
+    assert [json.loads(x)["step"] for x in got.splitlines()] == [2, 3, 4, 5]
+
+
 def test_dataset90k_fit_and_summary_match_reference_on_identical_inputs():
     t = jds.generate(n_steps=20_000)
     port = tds.Telemetry(*(torch.from_numpy(np.array(x)) for x in t))

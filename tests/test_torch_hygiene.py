@@ -109,17 +109,18 @@ def test_kernel_sources_use_pow_not_cbrt():
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 # the sources allowed tensor-core instructions: the bf16 flash attention
-# kernel, whose f32 twin (flash_attention.cu) and every other kernel keep
-# their products in f32 on the CUDA cores
-TENSOR_CORE_SOURCES = ("flash_attention_tc.cu",)
+# kernels, forward and backward, whose f32 twins (flash_attention.cu,
+# flash_attention_bwd.cu) and every other kernel keep their products in
+# f32 on the CUDA cores
+TENSOR_CORE_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu")
 
 
 @pytest.mark.parametrize("src", sorted(CSRC.glob("*.cu")),
                          ids=lambda p: p.name)
 def test_kernel_sources_use_no_library_or_tensor_core_product(src):
     """No kernel calls a library (cuBLAS, cuDNN) or uses TF32; only the
-    tensor-core flash source issues tensor-core products (wgmma, which it
-    must), the others compute in f32 on the CUDA cores."""
+    tensor-core flash sources issue tensor-core products (wgmma, which
+    they must), the others compute in f32 on the CUDA cores."""
     text = src.read_text().lower().replace("no tf32", "")
     banned = ["cublas", "cudnn", "tf32"]
     if src.name not in TENSOR_CORE_SOURCES:

@@ -138,8 +138,21 @@ def test_plain_flash_at_mla_head_dims(causal, dtype):
 
 
 def test_mla_shapes_route_to_the_cuda_core_kernel():
-    """On a card d ≠ dv takes the CUDA-core kernel, in either dtype."""
-    for dt in (torch.bfloat16, torch.float32):
-        assert flash_route("cuda", dt, dt, 192, 128) == "cuda_core"
-    assert flash_route("cuda", torch.bfloat16, torch.bfloat16, 128,
-                       128) == "tensor_core"
+    """On a card MLA's d 192 / dv 128 in f32 (or mixed types) takes the
+    CUDA-core kernel, forward and backward."""
+    assert flash_route("cuda", torch.float32, torch.float32, 192,
+                       128) == "cuda_core"
+    assert flash_route("cuda", torch.bfloat16, torch.float32, 192,
+                       128) == "cuda_core"
+
+
+def test_mla_shapes_route_bf16_to_the_tensor_cores():
+    """On a card bf16 at MLA's d 192 / dv 128 takes the tensor-core kernels
+    (forward and backward), as bf16 at d = dv = 128 does; other d ≠ dv
+    pairs do not."""
+    bf16 = torch.bfloat16
+    assert flash_route("cuda", bf16, bf16, 192, 128) == "tensor_core"
+    assert flash_route("cuda", bf16, bf16, 128, 128) == "tensor_core"
+    assert flash_route("cuda", bf16, bf16, 128, 192) == "cuda_core"
+    assert flash_route("cuda", bf16, bf16, 192, 192) == "cuda_core"
+    assert flash_route("cpu", bf16, bf16, 192, 128) == "plain"
