@@ -665,3 +665,19 @@ class FleetEngine:
         else:
             state, telems = self._run_impl(state, rho_trace)
         return state, telems.reduce()
+
+
+def sequential_step(sched: ThermalScheduler, states: list[SchedulerState],
+                    rho) -> tuple[list[SchedulerState],
+                                  list[SchedulerOutput]]:
+    """Per-package Python-loop reference: one `update` call per package.
+
+    This is the baseline the fleet engine is benchmarked and verified
+    against.  rho: [n_packages, n_tiles].
+    """
+    nxt, outs = [], []
+    for i, st in enumerate(states):
+        st, out = sched.update(st, rho[i])
+        nxt.append(st)
+        outs.append(out)
+    return nxt, outs

@@ -55,6 +55,12 @@
 //     the old one.
 // The chunk length is what the wrapper gives (the Pallas wrapper's rule:
 // min(64, T) halved until it divides T), at most 64.
+//
+// Training.  `ssd_states_launch` is the same kernel instantiated with
+// STATES: before each chunk's state update every thread also writes its
+// tile of the state entering the chunk to hs [B, nc, H, N, P] (f32), which
+// the backward (ssd_bwd.cu) reads.  Nothing else changes, so its y and hT
+// are the serving launch's bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,13 +234,13 @@ __device__ __forceinline__ void tile_product(float (&acc)[4][Q],
   }
 }
 
-template <int Q>
+template <int Q, bool STATES>
 __global__ void __launch_bounds__(THREADS, Q == 4 ? 2 : 1)
     ssd_kernel(const SsdArgs a, const void* __restrict__ d,
                const void* __restrict__ b, const void* __restrict__ x,
                const void* __restrict__ c, const float* __restrict__ u,
                const float* __restrict__ h0, void* __restrict__ y,
-               float* __restrict__ hT) {
+               float* __restrict__ hT, float* __restrict__ hs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(a);
   float* sCh = reinterpret_cast<float*>(smem + lay.ch);
@@ -466,7 +472,9 @@ __global__ void __launch_bounds__(THREADS, Q == 4 ? 2 : 1)
     }
     __syncthreads();            // every read of h is done
 
-    // ---- h ← e^{L_C}·h + b̃ᵀ·x
+    // ---- h ← e^{L_C}·h + b̃ᵀ·x (with STATES, the old h to hs first)
+    const size_t chunk_state =
+        ((size_t(bb) * (T / ck) + t0 / ck) * H + h) * N * P;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int nn = r0 + i;
@@ -475,7 +483,10 @@ __global__ void __launch_bounds__(THREADS, Q == 4 ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < Q; ++j) {
         const int p = c0 + j + (j >= 4 ? 60 : 0);
-        if (p < P) sH[nn * PT + p] = decay * sH[nn * PT + p] + st[i][j];
+        if (p < P) {
+          if constexpr (STATES) hs[chunk_state + nn * P + p] = sH[nn * PT + p];
+          sH[nn * PT + p] = decay * sH[nn * PT + p] + st[i][j];
+        }
       }
     }
   }
@@ -486,21 +497,29 @@ __global__ void __launch_bounds__(THREADS, Q == 4 ? 2 : 1)
   }
 }
 
-template <int Q>
+template <int Q, bool STATES>
 int launch(const SsdArgs& a, const void* d, const void* b, const void* x,
            const void* c, const float* u, const float* h0, void* y,
-           float* hT, cudaStream_t stream) {
+           float* hT, float* hs, cudaStream_t stream) {
   const int smem = layout(a).total;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_kernel<Q, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_kernel<Q>,
+    err = cudaFuncSetAttribute(ssd_kernel<Q, STATES>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return int(err);
-  ssd_kernel<Q><<<dim3(a.H, a.B), THREADS, smem, stream>>>(a, d, b, x, c, u,
-                                                           h0, y, hT);
+  ssd_kernel<Q, STATES><<<dim3(a.H, a.B), THREADS, smem, stream>>>(
+      a, d, b, x, c, u, h0, y, hT, hs);
   return int(cudaGetLastError());
+}
+
+bool valid(const SsdArgs* a, const float* u, const float* h0) {
+  return !(a->B < 1 || a->T < 1 || a->H < 1 || a->N < 1 || a->N > MAX_N ||
+           a->P < 1 || a->P > MAX_P || a->chunk < 1 || a->chunk > C ||
+           a->T % a->chunk || (a->has_u && !u) || (a->has_h0 && !h0) ||
+           a->H > 65535 || a->B > 65535);
 }
 
 }  // namespace
@@ -508,12 +527,21 @@ int launch(const SsdArgs& a, const void* d, const void* b, const void* x,
 extern "C" int ssd_launch(const SsdArgs* a, const void* d, const void* b,
                           const void* x, const void* c, const float* u,
                           const float* h0, void* y, float* hT, void* stream) {
-  if (a->B < 1 || a->T < 1 || a->H < 1 || a->N < 1 || a->N > MAX_N ||
-      a->P < 1 || a->P > MAX_P || a->chunk < 1 || a->chunk > C ||
-      a->T % a->chunk || (a->has_u && !u) || (a->has_h0 && !h0) ||
-      a->H > 65535 || a->B > 65535)
-    return int(cudaErrorInvalidValue);
+  if (!valid(a, u, h0)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->P > 64 ? launch<8>(*a, d, b, x, c, u, h0, y, hT, st)
-                   : launch<4>(*a, d, b, x, c, u, h0, y, hT, st);
+  return a->P > 64
+             ? launch<8, false>(*a, d, b, x, c, u, h0, y, hT, nullptr, st)
+             : launch<4, false>(*a, d, b, x, c, u, h0, y, hT, nullptr, st);
+}
+
+// the forward that also writes the state entering each chunk to hs
+// [B, T / chunk, H, N, P] f32
+extern "C" int ssd_states_launch(const SsdArgs* a, const void* d,
+                                 const void* b, const void* x, const void* c,
+                                 const float* u, const float* h0, void* y,
+                                 float* hT, float* hs, void* stream) {
+  if (!valid(a, u, h0) || !hs) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a->P > 64 ? launch<8, true>(*a, d, b, x, c, u, h0, y, hT, hs, st)
+                   : launch<4, true>(*a, d, b, x, c, u, h0, y, hT, hs, st);
 }

@@ -3,20 +3,27 @@
     h_t = d_t ⊙ h_{t−1} + b_t ⊗ x_t,      y_t = c_t · h_t
 
 Port of the TPU kernel `repro.kernels.ssm_scan.ssd` (Pallas body
-`_kernel`), with its plain version.
+`_kernel`), with its plain version and its gradient.
 
   * `ssd` — the wrapper.  On CUDA tensors it launches the hand-written
     Hopper kernel (``csrc/ssd.cu``: one block per (head, batch) walking
     the chunks in order with the [N, P] state in shared memory) or raises;
     on CPU tensors it runs `ssd_reference`.  ``ssd.launches`` counts kernel
     launches.  Like the Pallas wrapper it halves ``chunk`` until it divides
-    T, and hands that chunk to either version.  The kernel has no backward
-    yet: on a card, with grad mode on and an input that requires grad, it
-    raises instead of returning an output without a graph (ROADMAP queue 1
-    step 10.5b); on the CPU `ssd_reference` is differentiated by autograd.
+    T, and hands that chunk to either version.  With grad mode on and an
+    input that requires grad it goes through `SsdFunction` on either
+    device, so its output always carries a graph.
   * `ssd_reference` — the plain PyTorch version: `repro.kernels.ref.
     chunked_ssd` op for op (it keeps that function's assert that the chunk
-    divides T).
+    divides T); with ``states=True`` it also returns the state entering
+    each chunk.
+  * `SsdFunction` — the gradient, as the reference gets it from XLA's
+    differentiation of ``chunked_ssd``: forward `ssd_states` (the kernel's
+    variant that also writes the chunk states hs [B, nc, H, N, P] f32, or
+    the plain version on the CPU), backward `ssd_backward` (``csrc/
+    ssd_bwd.cu``: a reverse walk over the chunks for the state gradient,
+    then every other gradient chunk-parallel; `ssd_backward_reference` on
+    the CPU).
 
 Per chunk both compute, in f32: the inclusive log-decay cumsum L; ĉ = c·e^L,
 b̂ = b·e^{−L}, b̃ = b·e^{L_C − L}; the masked [C, C] scores ĉ·b̂ᵀ (s ≤ t with
@@ -25,7 +32,7 @@ b̂ = b·e^{−L}, b̃ = b·e^{L_C − L}; the masked [C, C] scores ĉ·b̂ᵀ (
 factorisation is stable for per-step decay ≳ 0.55 at chunk 64, as in the
 reference.  y comes back in x's dtype, the final state in f32.  d, b, c
 and x may each be f32 or bf16 (Mamba2 at bf16 passes f32 d and b, bf16 c
-and x).
+and x); each gradient comes back in its input's dtype.
 """
 from __future__ import annotations
 
@@ -92,22 +99,40 @@ def ssd(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
     [B, H, N, P] f32).  See the module docstring."""
     _check(d, b, x, c, u, h0)
     ck = chunk_for(d.shape[1], chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (d, b, x, c, u, h0)):
+        return SsdFunction.apply(d, b, x, c, u, h0, ck, include_current)
     if d.device.type == "cpu":
         return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=ck,
                              include_current=include_current)
-    if d.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu, got {d.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (d, b, x, c, u, h0)):
-        raise NotImplementedError(
-            "ssd has no backward kernel on the card yet (ROADMAP queue 1 "
-            "step 10.5b): its kernel's output would carry no gradient")
-    if ck > _MAX_CHUNK:
-        raise ValueError(f"ssd: chunk {ck} > {_MAX_CHUNK}")
+    _check_cuda(d, ck)
     return _launch(d, b, x, c, u, h0, ck, include_current)
 
 
 ssd.launches = 0
+
+
+def _check_cuda(d, ck) -> None:
+    if d.device.type != "cuda":
+        raise ValueError(f"ssd runs on cuda or cpu, got {d.device}")
+    if ck > _MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {ck} > {_MAX_CHUNK}")
+
+
+def ssd_states(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
+               include_current: bool = True):
+    """The forward that keeps the chunk states: (y, hT, hs), hs [B, nc, H,
+    N, P] f32 the state entering each chunk (hs[:, 0] is h0, or zeros).
+    On a card the kernel's states variant (one launch, counted in
+    ``ssd.launches``; its y and hT are the serving launch's bit for bit),
+    on the CPU `ssd_reference` with ``states=True``."""
+    _check(d, b, x, c, u, h0)
+    ck = chunk_for(d.shape[1], chunk)
+    if d.device.type == "cpu":
+        return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=ck,
+                             include_current=include_current, states=True)
+    _check_cuda(d, ck)
+    return _launch(d, b, x, c, u, h0, ck, include_current, states=True)
 
 
 class _SsdArgs(ctypes.Structure):
@@ -118,37 +143,63 @@ class _SsdArgs(ctypes.Structure):
         "has_h0", "d_bf16", "b_bf16", "x_bf16", "c_bf16")]
 
 
-def _launch(d, b, x, c, u, h0, ck, include_current):
+class _SsdBwdArgs(ctypes.Structure):
+    """Mirrors ``struct SsdBwdArgs`` in csrc/ssd_bwd.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "B", "T", "H", "N", "P", "chunk", "include_current", "has_u",
+        "has_dhT", "d_bf16", "b_bf16", "x_bf16", "c_bf16")]
+
+
+def _args(cls, d, b, x, c, u, ck, include_current, **flags):
+    B, T, H, N = d.shape
+    return cls(B=B, T=T, H=H, N=N, P=x.shape[-1], chunk=ck,
+               include_current=int(bool(include_current)),
+               has_u=int(u is not None),
+               **{k: int(v) for k, v in flags.items()},
+               **{f"{k}_bf16": _DTYPES[t.dtype]
+                  for k, t in (("d", d), ("b", b), ("x", x), ("c", c))})
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(d, b, x, c, u, h0, ck, include_current, states=False):
+    """The forward kernel: (y, hT), or with ``states`` (y, hT, hs) from
+    the states variant (``ssd_states_launch``, the same code with the
+    chunk states written out)."""
     from repro_torch.kernels import _build
 
-    fn = _build.load("ssd").ssd_launch
+    lib = _build.load("ssd")
+    fn = lib.ssd_states_launch if states else lib.ssd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_SsdArgs)] + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.POINTER(_SsdArgs)]
+                   + [ctypes.c_void_p] * (10 if states else 9))
     B, T, H, N = d.shape
     P = x.shape[-1]
-    a = _SsdArgs(B=B, T=T, H=H, N=N, P=P, chunk=ck,
-                 include_current=int(bool(include_current)),
-                 has_u=int(u is not None), has_h0=int(h0 is not None),
-                 d_bf16=_DTYPES[d.dtype], b_bf16=_DTYPES[b.dtype],
-                 x_bf16=_DTYPES[x.dtype], c_bf16=_DTYPES[c.dtype])
+    a = _args(_SsdArgs, d, b, x, c, u, ck, include_current,
+              has_h0=h0 is not None)
     y = torch.empty_like(x)
     hT = torch.empty((B, H, N, P), dtype=torch.float32, device=d.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    hs = (torch.empty((B, T // ck, H, N, P), dtype=torch.float32,
+                      device=d.device) if states else None)
     err = fn(ctypes.byref(a), d.data_ptr(), b.data_ptr(), x.data_ptr(),
-             c.data_ptr(), ptr(u), ptr(h0), y.data_ptr(), hT.data_ptr(),
+             c.data_ptr(), _ptr(u), _ptr(h0), y.data_ptr(), hT.data_ptr(),
+             *((hs.data_ptr(),) if states else ()),
              torch.cuda.current_stream(d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError_t {err}")
     ssd.launches += 1
-    return y, hT
+    return (y, hT, hs) if states else (y, hT)
 
 
 def ssd_reference(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
-                  include_current: bool = True
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  include_current: bool = True, states: bool = False):
     """Plain PyTorch version of `ssd`: `repro.kernels.ref.chunked_ssd` op
-    for op, on any device.  Nothing on the main path calls it when a card
-    is present."""
+    for op, on any device.  Returns (y, hT), with ``states`` (y, hT, hs):
+    hs [B, nc, H, N, P] f32 the state entering each chunk.  Nothing on the
+    main path calls it when a card is present."""
     B, T, H, N = d.shape
     P = x.shape[-1]
     nc = T // chunk
@@ -177,13 +228,192 @@ def ssd_reference(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
 
     h = (torch.zeros((B, H, N, P), dtype=f32, device=d.device)
          if h0 is None else h0.to(f32))
-    y_inter = []
+    y_inter, hs = [], []
     for g in range(nc):
+        hs.append(h)
         y_inter.append(torch.einsum("bthn,bhnp->bthp", c_hat[:, g], h))
         h = (torch.exp(Lc[:, g])[..., None] * h
              + torch.einsum("bshn,bshp->bhnp", b_tld[:, g], xr[:, g]))
-    y = y + torch.stack(y_inter, 1)
-    return y.reshape(B, T, H, P).to(x.dtype), h
+    y = (y + torch.stack(y_inter, 1)).reshape(B, T, H, P).to(x.dtype)
+    return (y, h, torch.stack(hs, 1)) if states else (y, h)
+
+
+def _check_backward(d, x, hs, dy, dhT, ck) -> None:
+    B, T, H, N = d.shape
+    P = x.shape[-1]
+    for name, t, shape, dtype in (
+            ("hs", hs, (B, T // ck, H, N, P), torch.float32),
+            ("dy", dy, (B, T, H, P), x.dtype),
+            ("dhT", dhT, (B, H, N, P), torch.float32)):
+        if t is None:
+            continue
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous() or t.device != d.device):
+            raise ValueError(f"ssd_backward: {name} must be contiguous "
+                             f"{dtype} {shape} on {d.device}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def ssd_backward(d, b, x, c, u, h0, hs, dy, dhT, *, chunk: int = 64,
+                 include_current: bool = True):
+    """(dd, db, dx, dc, du, dh0) of `ssd` from its inputs, the forward's
+    chunk states ``hs`` (`ssd_states`), the output's gradient ``dy`` (made
+    contiguous here: autograd may hand it over strided) and the final
+    state's ``dhT`` (None for zero).  dd, db, dx, dc in their inputs'
+    dtypes; du [H, N] f32 (None without ``u``); dh0 [B, H, N, P] f32.  On a
+    card ``csrc/ssd_bwd.cu`` (counted once a call in
+    ``ssd_backward.launches``) or raises; on the CPU the plain version."""
+    dy = dy.contiguous()
+    _check(d, b, x, c, u, h0)
+    ck = chunk_for(d.shape[1], chunk)
+    _check_backward(d, x, hs, dy, dhT, ck)
+    if d.device.type == "cpu":
+        return ssd_backward_reference(d, b, x, c, u, h0, hs, dy, dhT,
+                                      chunk=ck,
+                                      include_current=include_current)
+    _check_cuda(d, ck)
+    grads = _launch_bwd(d, b, x, c, u, hs, dy, dhT, ck, include_current)
+    ssd_backward.launches += 1
+    return grads
+
+
+ssd_backward.launches = 0
+
+
+def _launch_bwd(d, b, x, c, u, hs, dy, dhT, ck, include_current):
+    """The backward kernels (``ssd_bwd_launch``: the reverse state walk,
+    the chunk-parallel gradients, the fixed-order du sum), with the state
+    gradient entering each chunk from the right and du's per-(batch,
+    chunk) partials as scratch."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("ssd_bwd").ssd_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_SsdBwdArgs)] + [ctypes.c_void_p] * 17
+    B, T, H, N = d.shape
+    P = x.shape[-1]
+    nc = T // ck
+    a = _args(_SsdBwdArgs, d, b, x, c, u, ck, include_current,
+              has_dhT=dhT is not None)
+    f32 = dict(dtype=torch.float32, device=d.device)
+    dd, db, dx, dc = (torch.empty_like(t) for t in (d, b, x, c))
+    du = None if u is None else torch.empty((H, N), **f32)
+    dh0 = torch.empty((B, H, N, P), **f32)
+    dhs = torch.empty((B, nc, H, N, P), **f32)
+    du_part = torch.empty((B, nc, H, N) if u is not None else (1,), **f32)
+    err = fn(ctypes.byref(a), *(_ptr(t) for t in (
+        d, b, x, c, u, hs, dy, dhT, dhs, du_part, dd, db, dx, dc, du, dh0)),
+        torch.cuda.current_stream(d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd backward kernel launch failed: "
+                           f"cudaError_t {err}")
+    return dd, db, dx, dc, du, dh0
+
+
+def ssd_backward_reference(d, b, x, c, u, h0, hs, dy, dhT, *,
+                           chunk: int = 64, include_current: bool = True):
+    """Plain PyTorch version of `ssd_backward`: the chunk formulas written
+    out (not autograd of `ssd_reference`), on any device.
+
+    Per chunk g, from the forward's intermediates (L, ĉ, b̂, b̃, the masked
+    scores S, the bonus sums su) and the state h_g entering it, with dh the
+    state gradient leaving it (a reverse walk from dhT):
+    dS = mask(dy xᵀ); dx = Sᵀdy + su·dy + b̃·dh; dĉ = dS·b̂ + dy·h_gᵀ;
+    db̂ = dSᵀĉ; db̃ = x·dhᵀ; dLc = Σ_p h_g⊙dh·e^{Lc} + Σ_t db̃⊙b̃;
+    dL = dĉ⊙ĉ − db̂⊙b̂ − db̃⊙b̃; dlog d_s = Σ_{t≥s} dL_t + dLc (a reverse
+    running sum); dd = dlog d / d where d > 1e-20, else 0; dc = dĉ⊙e^L,
+    db = db̂⊙e^{−L} + db̃⊙e^{Lc−L}; with u, dsu = Σ_p dy⊙x adds dsu·u·b to
+    dc, dsu·u·c to db and Σ dsu·c·b to du.  The walk: dh ← e^{Lc}⊙dh +
+    ĉᵀdy, and dh0 is its last value.  Returns (dd, db, dx, dc, du, dh0) as
+    `ssd_backward` does; ``h0`` is unused (hs[:, 0] holds it)."""
+    del h0
+    B, T, H, N = d.shape
+    P = x.shape[-1]
+    nc = T // chunk
+    assert nc * chunk == T, f"T={T} not divisible by chunk={chunk}"
+    f32 = torch.float32
+    dr = d.reshape(B, nc, chunk, H, N).to(f32)
+    br = b.reshape(B, nc, chunk, H, N).to(f32)
+    xr = x.reshape(B, nc, chunk, H, P).to(f32)
+    cr = c.reshape(B, nc, chunk, H, N).to(f32)
+    dyr = dy.reshape(B, nc, chunk, H, P).to(f32)
+
+    L = torch.cumsum(torch.log(torch.clamp(dr, min=1e-20)), dim=2)
+    Lc = L[:, :, -1]                                  # [B, nc, H, N]
+    eL, einv = torch.exp(L), torch.exp(-L)
+    elcl = torch.exp(Lc[:, :, None] - L)
+    c_hat, b_hat, b_tld = cr * eL, br * einv, br * elcl
+    t_idx = torch.arange(chunk, device=d.device)[:, None]
+    s_idx = torch.arange(chunk, device=d.device)[None, :]
+    keep = ((s_idx <= t_idx) if include_current else (s_idx < t_idx)
+            )[None, None, None]
+    S = torch.where(keep, torch.einsum("bgthn,bgshn->bghts", c_hat, b_hat),
+                    0.0)
+    dS = torch.where(keep, torch.einsum("bgthp,bgshp->bghts", dyr, xr), 0.0)
+
+    # the state gradient leaving each chunk: a walk from the last chunk
+    dh = (torch.zeros((B, H, N, P), dtype=f32, device=d.device)
+          if dhT is None else dhT.to(f32))
+    dhs = [None] * nc
+    for g in reversed(range(nc)):
+        dhs[g] = dh
+        dh = (torch.exp(Lc[:, g])[..., None] * dh
+              + torch.einsum("bthn,bthp->bhnp", c_hat[:, g], dyr[:, g]))
+    DH = torch.stack(dhs, 1)                          # [B, nc, H, N, P]
+
+    dx = (torch.einsum("bghts,bgthp->bgshp", S, dyr)
+          + torch.einsum("bgshn,bghnp->bgshp", b_tld, DH))
+    dc_hat = (torch.einsum("bghts,bgshn->bgthn", dS, b_hat)
+              + torch.einsum("bgthp,bghnp->bgthn", dyr, hs))
+    db_hat = torch.einsum("bghts,bgthn->bgshn", dS, c_hat)
+    db_tld = torch.einsum("bgshp,bghnp->bgshn", xr, DH)
+    dLc = ((hs * DH).sum(-1) * torch.exp(Lc)
+           + (db_tld * b_tld).sum(2))
+    dL = dc_hat * c_hat - db_hat * b_hat - db_tld * b_tld
+    dc = dc_hat * eL
+    db = db_hat * einv + db_tld * elcl
+    du = None
+    if u is not None:
+        uf = u.to(f32)
+        su = torch.einsum("bgthn,hn,bgthn->bgth", cr, uf, br)
+        dsu = (dyr * xr).sum(-1)                      # [B, nc, C, H]
+        dx = dx + su[..., None] * dyr
+        dc = dc + dsu[..., None] * uf * br
+        db = db + dsu[..., None] * uf * cr
+        du = torch.einsum("bgth,bgthn,bgthn->hn", dsu, cr, br)
+    # Σ_{t ≥ s} dL_t, summed from the chunk's last step down
+    dlogd = torch.flip(torch.cumsum(torch.flip(dL, (2,)), 2), (2,)) \
+        + dLc[:, :, None]
+    dd = torch.where(dr > 1e-20, dlogd / dr, 0.0)
+    back = lambda t, like: t.reshape(like.shape).to(like.dtype)
+    return (back(dd, d), back(db, b), back(dx, x), back(dc, c), du, dh)
+
+
+class SsdFunction(torch.autograd.Function):
+    """`ssd` with its gradient.  Forward: `ssd_states`; saved: (d, b, x, c,
+    u, h0, hs); backward: `ssd_backward`.  Both are looked up in this
+    module when called, so a caller may point them at the plain versions
+    on a card.  Gradients that autograd does not materialise (an unused
+    y or hT) arrive as None: dy then counts as zeros, dhT as absent."""
+
+    @staticmethod
+    def forward(ctx, d, b, x, c, u, h0, chunk, include_current):
+        y, hT, hs = ssd_states(d, b, x, c, u=u, h0=h0, chunk=chunk,
+                               include_current=include_current)
+        ctx.save_for_backward(d, b, x, c, u, h0, hs)
+        ctx.set_materialize_grads(False)
+        ctx.args = dict(chunk=chunk, include_current=include_current)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        d, b, x, c, u, h0, hs = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_backward(d, b, x, c, u, h0, hs, dy, dhT, **ctx.args)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
 
 
 def ssd_cost(d, b, x, c, u=None, h0=None) -> dict:
@@ -205,3 +435,31 @@ def ssd_cost(d, b, x, c, u=None, h0=None) -> dict:
     nbytes = (size(d) + size(b) + size(c) + size(x) + size(u) + size(h0)
               + size(x) + B * H * N * P * 4)
     return {"bytes": nbytes, "ops": B * H * (T // ck) * per_chunk}
+
+
+def ssd_backward_cost(d, b, x, c, u=None, dhT=None, *,
+                      include_current: bool = True) -> dict:
+    """Bytes and operations `ssd_backward` must spend on these inputs.
+
+    Bytes: d, b, c, x, the output's gradient (x's dtype), the chunk states
+    hs (f32), u and dhT read once; dd, db, dc, dx (each in its input's
+    dtype), du and dh0 written once.  Operations per (batch, head) chunk
+    of C steps: the five products with a masked C × C operand — scores
+    2·N, dS 2·P, Sᵀdy 2·P, dS·b̂ and dSᵀĉ 4·N an entry, over only the K
+    entries the mask keeps (C(C+1)/2 with ``include_current``, C(C−1)/2
+    without) —, dy·hᵀ, b̃·dh, x·dhᵀ and the state walk's ĉᵀdy 8·C·N·P,
+    the walk's decay and Σ_p h⊙dh 2·N·P, and ~30·C·N for the logs,
+    exponentials, cumsums and elementwise gradients.
+    """
+    B, T, H, N = d.shape
+    P = x.shape[-1]
+    ck = chunk_for(T, 64)
+    nc = T // ck
+    kept = ck * (ck + 1) // 2 if include_current else ck * (ck - 1) // 2
+    per_chunk = (2 * kept * (3 * N + 2 * P) + 8 * ck * N * P
+                 + 2 * N * P + 30 * ck * N)
+    size = lambda t: 0 if t is None else t.numel() * t.element_size()
+    state = B * H * N * P * 4
+    nbytes = (2 * (size(d) + size(b) + size(c) + size(x)) + size(x)
+              + nc * state + 2 * size(u) + size(dhT) + state)
+    return {"bytes": nbytes, "ops": B * H * nc * per_chunk}

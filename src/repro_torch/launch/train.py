@@ -13,9 +13,8 @@ frequency, at-risk tiles, grad norm per step).
 
 It runs on the card unless given ``--device cpu`` (the plain versions of
 the kernels: the tests' path), and raises without one.  On the card every
-attention goes through the flash kernels, forward and backward; the
-``ssd`` kernel has no backward yet, so the ssm (RWKV6) and hybrid
-(Zamba2) families are refused there (ROADMAP queue 1 step 10.5b).  Each
+attention goes through the flash kernels and every ssd (RWKV6, Zamba2's
+Mamba2 layers) through the ssd kernels, forward and backward.  Each
 step's metrics come to the host in one copy; the driver prints the loss,
 the warm step time (host clock after a synchronize; the first step, which
 builds the kernels, is not counted), tokens per second and the peak
@@ -39,8 +38,6 @@ from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.distributed.fault_tolerance import Heartbeat, PreemptionGuard
 from repro_torch.launch import steps as S
 
-# families whose training needs a kernel the card does not have yet
-_NOT_PORTED = {"ssm": "10.5b", "hybrid": "10.5b"}
 _LOGGED = ("loss", "nll", "grad_norm", "thermal_temp_max",
            "thermal_freq_min", "thermal_at_risk")
 
@@ -74,11 +71,6 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if dev.type == "cuda" and cfg.family in _NOT_PORTED:
-        raise SystemExit(f"repro_torch.launch.train: training the "
-                         f"{cfg.family} family on the card needs the ssd "
-                         f"backward kernel, not ported yet: ROADMAP queue "
-                         f"1 step {_NOT_PORTED[cfg.family]}")
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     rho = rho_v24(cfg, shape)
 

@@ -986,17 +986,102 @@ def test_cuda_flash_backward_raises_when_its_kernel_does_not_load(
     assert tfa.flash_attention_backward.launches_by_route == routes
 
 
+def _ssd_inputs(dev, B, T, H, N, P, lo, dts, use_u, use_h0, use_dhT,
+                seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    d = (lo + (0.999 - lo) * torch.rand((B, T, H, N), generator=g,
+                                        device=dev)).to(dts[0])
+    return dict(d=d, b=(0.2 * r(B, T, H, N)).to(dts[1]),
+                x=r(B, T, H, P).to(dts[2]), c=(0.2 * r(B, T, H, N)).to(dts[3]),
+                u=0.1 * r(H, N) if use_u else None,
+                h0=r(B, H, N, P) if use_h0 else None,
+                dy=r(B, T, H, P).to(dts[2]),
+                dhT=r(B, H, N, P) if use_dhT else None)
+
+
+_F32, _BF = torch.float32, torch.bfloat16
+# (B, T, H, N, P, lowest decay, dtypes of d, b, x, c, include_current, u,
+# h0, dhT): the Mamba2 and RWKV6 regimes in their bf16 runs' types, an f32
+# case with h0 and dhT, a ragged T (chunk 8) with P = 128
+SSD_BWD_CASES = {
+    "mamba2 bf16": (2, 256, 8, 64, 64, 0.55, (_F32, _F32, _BF, _BF), True,
+                    False, False, False),
+    "rwkv6 bf16 u": (2, 256, 8, 64, 64, 0.8, (_F32, _BF, _BF, _BF), False,
+                     True, False, False),
+    "f32 h0 dhT": (2, 256, 4, 64, 64, 0.7, (_F32,) * 4, True, False, True,
+                   True),
+    "ragged P=128": (2, 1000, 2, 64, 128, 0.9, (_F32,) * 4, False, True,
+                     True, True),
+}
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+
+
 @pytest.mark.cuda
-def test_cuda_ssd_refuses_to_return_an_output_without_a_graph(cuda):
-    """The ssd kernel has no backward yet (ROADMAP queue 1 step 10.5b)."""
-    d = torch.full((1, 64, 2, 16), 0.9, device=cuda, requires_grad=True)
-    b, c = (torch.randn(1, 64, 2, 16, device=cuda) for _ in range(2))
-    x = torch.randn(1, 64, 2, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="10.5b"):
-        tsm.ssd(d, b, x, c)
-    with torch.no_grad():
-        y, _ = tsm.ssd(d, b, x, c)
-    assert y.shape == x.shape
+@pytest.mark.parametrize("case", list(SSD_BWD_CASES))
+def test_cuda_ssd_backward_matches_its_plain_version(cuda, case):
+    """csrc/ssd_bwd.cu against `ssd_backward_reference` on the states the
+    kernel's states variant keeps: each gradient in its input's dtype,
+    within 1e-4 (f32) or 5e-3 (bf16) of its largest magnitude, the same
+    bits on two launches, one count a call; the states variant's y and
+    hT bit-equal to the serving launch's."""
+    B, T, H, N, P, lo, dts, inc, use_u, use_h0, use_dhT = \
+        SSD_BWD_CASES[case]
+    a = _ssd_inputs(cuda, B, T, H, N, P, lo, dts, use_u, use_h0, use_dhT)
+    kw = dict(u=a["u"], h0=a["h0"], include_current=inc)
+    y, hT, hs = tsm.ssd_states(a["d"], a["b"], a["x"], a["c"], **kw)
+    ys, hTs = tsm.ssd(a["d"], a["b"], a["x"], a["c"], **kw)
+    assert torch.equal(y, ys) and torch.equal(hT, hTs)
+    ck = tsm.chunk_for(T, 64)
+    args = (a["d"], a["b"], a["x"], a["c"], a["u"], a["h0"], hs, a["dy"],
+            a["dhT"])
+    before = tsm.ssd_backward.launches
+    g1 = tsm.ssd_backward(*args, chunk=ck, include_current=inc)
+    g2 = tsm.ssd_backward(*args, chunk=ck, include_current=inc)
+    torch.cuda.synchronize()
+    assert tsm.ssd_backward.launches == before + 2
+    gp = tsm.ssd_backward_reference(*args, chunk=ck, include_current=inc)
+    for name, k1, k2, w in zip(("dd", "db", "dx", "dc", "du", "dh0"), g1,
+                               g2, gp):
+        if w is None:
+            assert k1 is None and name == "du"
+            continue
+        assert k1.dtype == w.dtype and torch.equal(k1, k2), name
+        err = float((k1.float() - w.float()).abs().max())
+        assert err <= SSD_BWD_TOL[w.dtype] * float(w.float().abs().max()), \
+            name
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_under_grad_matches_the_plain_gradient(cuda, monkeypatch):
+    """With grad on, `ssd` on CUDA tensors goes through SsdFunction: one
+    states launch and one backward launch, and the gradients equal those
+    of the same graph on SsdFunction's plain branches within 1e-4 of each
+    leaf's largest magnitude; b, which needs no grad, gets None."""
+    a = _ssd_inputs(cuda, 1, 192, 2, 16, 32, 0.8, (_F32,) * 4, True, True,
+                    True)
+    leaves = [a[k].requires_grad_() for k in ("d", "x", "c", "u", "h0")]
+
+    def grads():
+        y, hT = tsm.ssd(a["d"], a["b"], a["x"], a["c"], u=a["u"], h0=a["h0"],
+                        include_current=False)
+        assert y.grad_fn is not None
+        loss = (y * a["dy"]).sum() + (hT * a["dhT"]).sum()
+        return torch.autograd.grad(loss, leaves)
+    kernel_bwd = tsm.ssd_backward          # holds the backward's count
+    counts = lambda: (tsm.ssd.launches, kernel_bwd.launches)
+    before = counts()
+    got = grads()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert a["b"].grad is None
+    monkeypatch.setattr(tsm, "ssd_states", lambda *s, **kw:
+                        tsm.ssd_reference(*s, states=True, **kw))
+    monkeypatch.setattr(tsm, "ssd_backward", tsm.ssd_backward_reference)
+    want = grads()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    for k, w in zip(got, want):
+        assert float((k - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 @pytest.mark.cuda
@@ -1036,8 +1121,43 @@ def test_cuda_train_step_kernels_match_plain_versions(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_train_driver_refuses_the_ssd_families(cuda):
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_cuda_train_step_launches_the_ssd_kernels(cuda, arch):
+    """Reduced RWKV6 / Zamba2 (f32): one train step launches the ssd
+    kernels exactly twice forward (the block under remat and its
+    recompute, with its states) and once backward a layer, and Zamba2's
+    shared block (not rematerialised) one flash forward and one backward
+    an application, on the CUDA-core route (f32)."""
+    from repro_torch.launch import steps as S
+
+    cfg = reduced(get_arch(arch))
+    params = ttf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(2, cfg.vocab_size, (2, 128), device=cuda)
+    labs = torch.randint(2, cfg.vocab_size, (2, 128), device=cuda)
+    tfa.reset_launches()
+    tsm.ssd.launches = tsm.ssd_backward.launches = 0
+    loss, _, grads = S.loss_and_grads(params, cfg, toks, labs)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    apps = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    assert (tsm.ssd.launches, tsm.ssd_backward.launches) == (2 * L, L)
+    assert tfa.flash_attention.launches_by_route["cuda_core"] == apps
+    assert tfa.flash_attention.launches == apps
+    assert tfa.flash_attention_backward.launches_by_route["cuda_core"] == apps
+    assert np.isfinite(float(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+def test_cuda_train_driver_trains_rwkv6(cuda):
+    """The driver trains a reduced RWKV6 on the card: finite losses, the
+    ssd kernels launched 2 × layers forward and once a layer backward a
+    step."""
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit, match="10.5b"):
-        train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1"])
+    tsm.ssd.launches = tsm.ssd_backward.launches = 0
+    res = train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "2",
+                      "--batch", "2", "--seq", "128", "--log-every", "0"])
+    L = reduced(get_arch("rwkv6-1.6b")).n_layers
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert (tsm.ssd.launches, tsm.ssd_backward.launches) == (4 * L, 2 * L)

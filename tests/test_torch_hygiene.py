@@ -34,6 +34,8 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
     ROOT / "scripts" / "kernel_ab.py",
     ROOT / "scripts" / "thermal_conv_limits.py",
+    ROOT / "scripts" / "ssd_train_limits.py",
+    ROOT / "scripts" / "ssd_bwd_staging.py",
     ROOT / "examples" / "torch_broadcast_step.py",
     ROOT / "examples" / "torch_train_100m.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
@@ -72,7 +74,8 @@ def test_port_has_every_module_of_the_slice():
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
                 "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu",
-                "fma_f32.cu", "flash_attention_bwd.cu"):
+                "fma_f32.cu", "flash_attention_bwd.cu",
+                "flash_attention_bwd_tc.cu", "ssd_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file(), src
 

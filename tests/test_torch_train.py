@@ -237,7 +237,7 @@ def test_loss_falls_over_12_steps_from_the_ports_own_init():
 
 def test_cpu_gradient_flows_through_the_plain_ssd():
     """On the CPU the ssd wrapper's plain version is differentiated by
-    autograd (the kernel's guard applies on a card only)."""
+    autograd (on a card `SsdFunction` launches the kernels)."""
     rng = np.random.default_rng(5)
     d = torch.tensor(rng.uniform(0.8, 0.99, (1, 16, 2, 4)).astype(
         np.float32), requires_grad=True)
@@ -269,14 +269,17 @@ def test_train_driver_resumes_from_its_checkpoints(tmp_path):
     assert CheckpointManager(str(tmp_path)).steps() == [3, 4, 5]
 
 
-def test_train_driver_refuses_ssd_families_on_the_card(monkeypatch):
-    """RWKV6 and Zamba2 need the ssd backward kernel on a card (ROADMAP
-    queue 1 step 10.5b); the driver exits non-zero before touching it."""
-    monkeypatch.setattr(train, "resolve_device",
-                        lambda d: torch.device("cuda"))
+def test_train_driver_trains_ssd_families():
+    """The driver refuses no family (the refusal table is gone): reduced
+    RWKV6 and Zamba2 train 3 steps on the CPU with finite losses, through
+    `SsdFunction` on the plain versions."""
+    assert not hasattr(train, "_NOT_PORTED")
     for arch in ("rwkv6-1.6b", "zamba2-7b"):
-        with pytest.raises(SystemExit, match="10.5b"):
-            train.main(["--arch", arch, "--reduced", "--steps", "1"])
+        res = train.main(["--device", "cpu", "--arch", arch, "--reduced",
+                          "--batch", "2", "--seq", "32", "--n-tiles", "4",
+                          "--log-every", "0", "--steps", "3"])
+        assert len(res["losses"]) == 3, arch
+        assert np.isfinite(res["losses"]).all(), arch
 
 
 def test_a_jax_checkpoint_resumes_in_the_port(tmp_path):
