@@ -229,8 +229,11 @@ Phase L  training.  (a) `flash_attention_stats` (each
          and dhT, and a ragged T (chunk 8) with P = 128 — each leaf in its
          input's dtype, within 1e-4 (f32) or 5e-3 (bf16) of its largest
          magnitude, the same bits on two launches; timed at the two
-         models' shapes beside the plain version and the bound (no library
-         call computes it).  (g) RWKV6-1.6B at full depth and Zamba2-7B
+         models' shapes beside the plain version and the bound (at a third
+         of the TF32 peak, the products' 3×TF32 split on the tensor cores;
+         the f32 CUDA-core bound beside it; no library call computes it),
+         with each pass's device time (torch.profiler), the kernel's one
+         route and each pass's shared bytes and resident blocks an SM.  (g) RWKV6-1.6B at full depth and Zamba2-7B
          with its depth cut (ZAMBA2_TRAIN_LAYERS) in bf16: the loss on the
          kernels against FlashAttention and SsdFunction on their plain
          branches within 1e-3, and the launches (the gradients' gap is
@@ -269,6 +272,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # bf16 on the tensor cores: the least time for work whose inputs are bf16
 PEAK_BF16_PER_S = 989e12
+# TF32 on the tensor cores (dense); an f32 product split into three TF32
+# products (the ssd backward's 3×TF32) runs at a third of it
+PEAK_TF32_PER_S = 495e12
 # dependent-issue latencies ASSUMED (not measured) for the estimate of the
 # grid recurrence's dependence floor, printed beside its times but not in
 # the kernels line: an f32 add or multiply, and a warp shuffle, in SM cycles;
@@ -2821,6 +2827,9 @@ SSD_BWD_CASES = (
      True, True, True, 0.9))
 SSD_BWD_TIMED = {"Zamba2-7B": "zamba2", "RWKV6-1.6B": "rwkv6"}
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
+# the backward's kernels, as the profiler names them, by pass
+SSD_BWD_PASSES = {"state_grad_kernel": "A", "chunk_grad_kernel": "B",
+                  "du_sum_kernel": "C"}
 # Phase L (g), (h): the ssd families train at full width; Zamba2-7B with its
 # depth cut to the deepest multiple of attn_every that fits (42 and 48
 # layers run out of memory in AdamW's f32 temporaries of the stacked [L,
@@ -3318,6 +3327,94 @@ def phase_l(dev) -> list:
             ssd_entry]
 
 
+def ssd_bwd_inputs(dev, case):
+    """(d, b, x, c, u, h0, dy, dhT) on ``dev`` for one row of
+    `SSD_BWD_CASES`, from seed 22: d uniform in [lowest decay, 0.999],
+    b and c 0.2·N(0, 1), x, dy, h0, dhT N(0, 1), u 0.1·N(0, 1), each in
+    the row's dtype (dy in x's)."""
+    import torch
+
+    _, B, T, H, N, P, dts, _, use_u, use_h0, use_dhT, lo = case
+    dt = [getattr(torch, t) for t in dts]
+    g = torch.Generator(device=dev).manual_seed(22)
+    r = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    d = (lo + (0.999 - lo) * torch.rand((B, T, H, N), generator=g,
+                                        device=dev)).to(dt[0])
+    b, x, c = (0.2 * r(B, T, H, N)).to(dt[1]), r(B, T, H, P).to(dt[2]), \
+        (0.2 * r(B, T, H, N)).to(dt[3])
+    u = 0.1 * r(H, N) if use_u else None
+    h0 = r(B, H, N, P) if use_h0 else None
+    dy = r(B, T, H, P).to(dt[2])
+    dhT = r(B, H, N, P) if use_dhT else None
+    return d, b, x, c, u, h0, dy, dhT
+
+
+def kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` in each CUDA kernel it launches, by the
+    kernel's own name (torch.profiler over ``reps`` calls after one warm
+    call); empty where the profiler records no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel)", e.key)
+        k = m.group(1) if m else e.key[:40]
+        out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def ssd_bwd_pass_times() -> dict:
+    """{row: {pass: device ms a call}} of the ssd backward at the
+    `SSD_BWD_TIMED` rows of `SSD_BWD_CASES`, by torch.profiler
+    (`kernel_ms`)."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as sm
+
+    dev, out = torch.device("cuda"), {}
+    for case in SSD_BWD_CASES:
+        if case[0] not in SSD_BWD_TIMED:
+            continue
+        d, b, x, c, u, h0, dy, dhT = ssd_bwd_inputs(dev, case)
+        inc = case[7]
+        hs = sm.ssd_states(d, b, x, c, u=u, h0=h0, include_current=inc)[2]
+        ms = kernel_ms(lambda: sm.ssd_backward(
+            d, b, x, c, u, h0, hs, dy, dhT,
+            chunk=sm.chunk_for(d.shape[1], 64), include_current=inc))
+        out[case[0]] = {SSD_BWD_PASSES[k]: v for k, v in ms.items()
+                        if k in SSD_BWD_PASSES}
+    return out
+
+
+def ssd_bwd_pass_ms() -> dict:
+    """`ssd_bwd_pass_times` in a Python process of its own: in this one,
+    after the earlier phases' profiler sessions, torch.profiler has
+    recorded only part of the passes' kernels, or none."""
+    code = (f"import json, sys; sys.path[:0] = "
+            f"{[str(ROOT), str(ROOT / 'src')]!r}; import chip_smoke; "
+            f"print(json.dumps(chip_smoke.ssd_bwd_pass_times()))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT)
+    check(r.returncode == 0,
+          f"phase L ssd backward passes: {r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    check(all(set(v) >= {"A", "B"} for v in out.values()),
+          f"phase L ssd backward passes: the profiler recorded {out}")
+    return out
+
+
 def phase_l_ssd(dev) -> dict:
     """Training the ssd families (Phase L (f)–(h)): the ssd backward kernel
     and the forward's states variant against their plain versions,
@@ -3336,21 +3433,13 @@ def phase_l_ssd(dev) -> dict:
 
     t_phase = time.perf_counter()
     # ---- (f) the ssd backward kernel and the forward's states variant
+    pass_ms = ssd_bwd_pass_ms()
     leaves = ("dd", "db", "dx", "dc", "du", "dh0")
     ssd_rel, ssd_abs, ssd_timing = dict.fromkeys(leaves, 0.0), 0.0, {}
-    for (what, B, T, H, N, P, dts, inc, use_u, use_h0, use_dhT,
-         lo) in SSD_BWD_CASES:
-        dt = [getattr(torch, t) for t in dts]
-        g = torch.Generator(device=dev).manual_seed(22)
-        r = lambda *sh: torch.randn(sh, generator=g, device=dev)
-        d = (lo + (0.999 - lo) * torch.rand((B, T, H, N), generator=g,
-                                            device=dev)).to(dt[0])
-        b, x, c = (0.2 * r(B, T, H, N)).to(dt[1]), r(B, T, H, P).to(dt[2]), \
-            (0.2 * r(B, T, H, N)).to(dt[3])
-        u = 0.1 * r(H, N) if use_u else None
-        h0 = r(B, H, N, P) if use_h0 else None
-        dy = r(B, T, H, P).to(dt[2])
-        dhT = r(B, H, N, P) if use_dhT else None
+    for case in SSD_BWD_CASES:
+        (what, B, T, H, N, P, dts, inc, use_u, use_h0, use_dhT,
+         lo) = case
+        d, b, x, c, u, h0, dy, dhT = ssd_bwd_inputs(dev, case)
         kw = dict(u=u, h0=h0, include_current=inc)
         ck = sm.chunk_for(T, 64)
         bkw = dict(chunk=ck, include_current=inc)
@@ -3410,20 +3499,33 @@ def phase_l_ssd(dev) -> dict:
                 d, b, x, c, u, h0, hs, dy, dhT, **bkw))[1]
             cost = sm.ssd_backward_cost(d, b, x, c, u, dhT,
                                         include_current=inc)
-            b_ms, b_by = bound(cost["bytes"], cost["ops"])
+            # the products on the tensor cores in 3×TF32: a third of the
+            # TF32 peak; the f32 CUDA-core bound beside it
+            b_ms, b_by = bound(cost["bytes"], cost["ops"],
+                               PEAK_TF32_PER_S / 3)
+            f32_ms, f32_by = bound(cost["bytes"], cost["ops"])
+            passes = pass_ms[what]
+            res = sm.ssd_backward_resources(P, d.dtype, c.dtype, x.dtype)
             fwd_ms = event_ms(lambda: sm.ssd(d, b, x, c, **kw), 10)
             st_ms = event_ms(lambda: sm.ssd_states(d, b, x, c, **kw), 10)
             ssd_timing[SSD_BWD_TIMED[what]] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, bound_f32_ms=f32_ms,
+                pass_ms=passes, resources=res)
             print(f"[phaseL] ssd_backward at {what}'s shape: kernel "
                   f"{ms:.4f} ms (median of 5, CUDA events; three launches a "
-                  f"call with u, two without), plain {plain_ms:.1f} ms (one "
-                  f"run), no library call; bound {b_ms:.4f} ms by {b_by} "
-                  f"({cost['bytes'] / 1e6:.1f} MB, {cost['ops'] / 1e9:.2f} "
-                  f"GFLOP at the f32 peak); the forward {fwd_ms:.4f} ms "
-                  f"serving, {st_ms:.4f} ms with its states (medians of "
-                  f"10)")
+                  f"call with u, two without), by pass (torch.profiler, "
+                  f"device ms a call, in a process of its own): "
+                  + json.dumps({k: round(v, 4) for k, v in passes.items()})
+                  + f"; route: the tensor cores, 3×TF32 (mma.sync "
+                  f"m16n8k8; the only route); shared bytes and blocks an "
+                  f"SM by pass: {json.dumps(res)}; plain {plain_ms:.1f} ms "
+                  f"(one run), no library call; bound {b_ms:.4f} ms by "
+                  f"{b_by} ({cost['bytes'] / 1e6:.1f} MB, "
+                  f"{cost['ops'] / 1e9:.2f} GFLOP at a third of the TF32 "
+                  f"peak; at the f32 CUDA-core peak {f32_ms:.4f} ms by "
+                  f"{f32_by}); the forward {fwd_ms:.4f} ms serving, "
+                  f"{st_ms:.4f} ms with its states (medians of 10)")
         del d, b, x, c, u, h0, dy, dhT, y, hT, hs, ys, hTs, hs_p, g1, g2, gp
     torch.cuda.empty_cache()
     print(f"[phaseL] ssd_bwd.cu (nvcc -Xptxas -v): {registers('ssd_bwd')}")

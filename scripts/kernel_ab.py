@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's `fleet_step`, `grid_conv`, `thermal_conv` and flash
-attention CUDA kernels against another build of the same kernels, in turns,
-on one card.
+"""Time the port's `fleet_step`, `grid_conv`, `thermal_conv`, flash
+attention and `ssd` backward CUDA kernels against another build of the
+same kernels, in turns, on one card.
 
     python3 scripts/kernel_ab.py --against DIR
 
-DIR holds ``fleet_step.cu``, ``grid_conv.cu`` and/or ``thermal_conv.cu``
+DIR holds ``fleet_step.cu``, ``grid_conv.cu``, ``thermal_conv.cu`` and/or
+``ssd_bwd.cu``
 with the same ``extern "C"`` launch function and argument struct as the
 sources under ``src/repro_torch/kernels/csrc/`` — an earlier revision's,
 for example (``git show REV:src/repro_torch/kernels/csrc/grid_conv.cu >
@@ -27,7 +28,14 @@ same bare ctypes runner (whose argument struct follows each source: one
 without the ``dv`` field has no d ≠ dv route, so MLA's shape runs DIR's
 CUDA-core ``flash_attention.cu``), the backward against DIR's
 ``flash_attention_bwd.cu`` (the CUDA-core backward, the only one before
-the tensor-core kernel), on the plain forward's statistics.  The order is
+the tensor-core kernel), on the plain forward's statistics.  The `ssd`
+backward against DIR's ``ssd_bwd.cu`` (same ``extern "C"`` launch and
+argument struct), at Zamba2-7B's and RWKV6-1.6B's training shapes
+(``chip_smoke.py``'s timed Phase L (f) rows, the same inputs), both through
+`ssm_scan.ssd_backward`: besides the times in turns, each build's device
+ms per call in each of its kernels (torch.profiler: the passes) and each
+build's largest gap per leaf to `ssd_backward_reference`, as a share of the
+leaf's largest magnitude.  The order is
 this checkout's build, the other, the other, this checkout's; each time is
 the median of 10 launches by CUDA events.  The two builds' outputs are
 compared (max |Δ|, bit-exact or not).  Prints one JSON object per window,
@@ -217,6 +225,8 @@ def flash_windows(dev, against: Path):
     fwd_tc = against / "flash_attention_tc.cu"
     fwd_cc = against / "flash_attention.cu"
     bwd_cc = against / "flash_attention_bwd.cu"
+    if not any(f.is_file() for f in (fwd_tc, fwd_cc, bwd_cc)):
+        return
     this_tc, _ = tc_forward(_build.build("flash_attention_tc"),
                             (_build.CSRC / "flash_attention_tc.cu")
                             .read_text())
@@ -246,6 +256,52 @@ def flash_windows(dev, against: Path):
                                                        do),
                    bwd, lambda: fa._launch_bwd(q, k, v, po, pm, pl, do, True,
                                                0, 0, d ** -0.5))
+
+
+def ssd_bwd_ab(dev, against: Path) -> list:
+    """The `ssd` backward of this checkout against DIR's ``ssd_bwd.cu`` at
+    chip_smoke's timed Phase L (f) shapes: times in turns, the outputs'
+    agreement, each build's per-kernel device times and its largest gap
+    per leaf to the plain version."""
+    src = against / "ssd_bwd.cu"
+    if not src.is_file():
+        return []
+    import torch
+
+    from chip_smoke import (SSD_BWD_CASES, SSD_BWD_TIMED, kernel_ms,
+                            ssd_bwd_inputs)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssm_scan as sm
+
+    leaves = ("dd", "db", "dx", "dc", "du", "dh0")
+    other = build_other(src)
+    out = []
+    for case in SSD_BWD_CASES:
+        if case[0] not in SSD_BWD_TIMED:
+            continue
+        d, b, x, c, u, h0, dy, dhT = ssd_bwd_inputs(dev, case)
+        inc = case[7]
+        hs = sm.ssd_states(d, b, x, c, u=u, h0=h0, include_current=inc)[2]
+        bkw = dict(chunk=sm.chunk_for(d.shape[1], 64), include_current=inc)
+        args = (d, b, x, c, u, h0, hs, dy, dhT)
+        run = lambda: sm.ssd_backward(*args, **bkw)
+        res = in_turns("ssd_bwd", run, other) | {"window": case[0]}
+        plain = sm.ssd_backward_reference(*args, **bkw)
+
+        def gaps():
+            got = run()
+            return {n: float((a.float() - w.float()).abs().max()
+                             / w.float().abs().max())
+                    for n, a, w in zip(leaves, got, plain) if w is not None}
+
+        res["this_rel_err"], res["this_kernel_ms"] = gaps(), kernel_ms(run)
+        with _build.loaded_from("ssd_bwd", other):
+            res["other_rel_err"] = gaps()
+            res["other_kernel_ms"] = kernel_ms(run)
+        out.append(res)
+        del d, b, x, c, u, h0, dy, dhT, hs, args, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -303,6 +359,7 @@ def main() -> None:
                 other, legacy and (lambda: legacy(p, g, poles.decay,
                                                   poles.gain)))
                 | {"window": [90_000, n]})
+    results += ssd_bwd_ab(dev, a.against)
     for name, label, this, path, other in flash_windows(dev, a.against):
         results.append(in_turns(name, this, path, other, loaded=True)
                        | {"window": label})

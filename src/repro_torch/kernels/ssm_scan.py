@@ -22,8 +22,8 @@ Port of the TPU kernel `repro.kernels.ssm_scan.ssd` (Pallas body
     variant that also writes the chunk states hs [B, nc, H, N, P] f32, or
     the plain version on the CPU), backward `ssd_backward` (``csrc/
     ssd_bwd.cu``: a reverse walk over the chunks for the state gradient,
-    then every other gradient chunk-parallel; `ssd_backward_reference` on
-    the CPU).
+    then every other gradient chunk-parallel, the chunk products on the
+    tensor cores in 3×TF32; `ssd_backward_reference` on the CPU).
 
 Per chunk both compute, in f32: the inclusive log-decay cumsum L; ĉ = c·e^L,
 b̂ = b·e^{−L}, b̃ = b·e^{L_C − L}; the masked [C, C] scores ĉ·b̂ᵀ (s ≤ t with
@@ -308,6 +308,29 @@ def _launch_bwd(d, b, x, c, u, hs, dy, dhT, ck, include_current):
         raise RuntimeError(f"ssd backward kernel launch failed: "
                            f"cudaError_t {err}")
     return dd, db, dx, dc, du, dh0
+
+
+def ssd_backward_resources(P: int, d_dtype, c_dtype, x_dtype) -> dict:
+    """Shared bytes a block and resident blocks an SM of the backward's
+    state-gradient walk ("A") and chunk-gradient pass ("B") for value
+    width ``P`` and these input dtypes, as the card reports them
+    (``ssd_bwd_resources``: cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs the card."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("ssd_bwd").ssd_bwd_resources
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    out = {}
+    for name, k in (("A", 0), ("B", 1)):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = fn(k, P, _DTYPES[d_dtype], _DTYPES[c_dtype], _DTYPES[x_dtype],
+                 ctypes.addressof(smem), ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"ssd_bwd_resources: cudaError_t {err}")
+        out[name] = {"smem_bytes": smem.value,
+                     "blocks_per_sm": blocks.value}
+    return out
 
 
 def ssd_backward_reference(d, b, x, c, u, h0, hs, dy, dhT, *,

@@ -35,7 +35,8 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "scripts" / "kernel_ab.py",
     ROOT / "scripts" / "thermal_conv_limits.py",
     ROOT / "scripts" / "ssd_train_limits.py",
-    ROOT / "scripts" / "ssd_bwd_staging.py",
+    ROOT / "scripts" / "flash_variants.py",
+    ROOT / "scripts" / "ssd_bwd_code_size.py",
     ROOT / "examples" / "torch_broadcast_step.py",
     ROOT / "examples" / "torch_train_100m.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
@@ -112,26 +113,37 @@ def test_kernel_sources_use_pow_not_cbrt():
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 # the sources allowed tensor-core instructions: the bf16 flash attention
-# kernels, forward and backward, whose f32 twins (flash_attention.cu,
-# flash_attention_bwd.cu) and every other kernel keep their products in
-# f32 on the CUDA cores
+# kernels, forward and backward (wgmma on bf16 operands), whose f32 twins
+# (flash_attention.cu, flash_attention_bwd.cu) and every other kernel but
+# the one below keep their products in f32 on the CUDA cores
 TENSOR_CORE_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu")
+# the split-precision tensor-core source: the ssd backward's f32 products
+# as three TF32 products each (3×TF32, mma.sync), the only source allowed
+# TF32
+SPLIT_TF32_SOURCES = ("ssd_bwd.cu",)
 
 
 @pytest.mark.parametrize("src", sorted(CSRC.glob("*.cu")),
                          ids=lambda p: p.name)
 def test_kernel_sources_use_no_library_or_tensor_core_product(src):
-    """No kernel calls a library (cuBLAS, cuDNN) or uses TF32; only the
-    tensor-core flash sources issue tensor-core products (wgmma, which
-    they must), the others compute in f32 on the CUDA cores."""
+    """No kernel calls a library (cuBLAS, cuDNN).  The bf16 flash sources
+    issue wgmma products, as they must; the ssd backward issues TF32
+    mma.sync products in the 3×TF32 split its header states, as it must;
+    only it may name TF32.  Every other source computes in f32 on the CUDA
+    cores: no wmma, mma.sync or wgmma."""
     text = src.read_text().lower().replace("no tf32", "")
-    banned = ["cublas", "cudnn", "tf32"]
-    if src.name not in TENSOR_CORE_SOURCES:
+    banned = ["cublas", "cudnn"]
+    if src.name not in SPLIT_TF32_SOURCES:
+        banned.append("tf32")
+    if src.name not in TENSOR_CORE_SOURCES + SPLIT_TF32_SOURCES:
         banned += ["wmma", "mma.sync", "wgmma"]
     for word in banned:
         assert word not in text, (src.name, word)
     if src.name in TENSOR_CORE_SOURCES:
         assert "wgmma.mma_async" in text, src.name
+    if src.name in SPLIT_TF32_SOURCES:
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+        assert "3×tf32" in text, src.name
 
 
 def test_every_port_module_imports_first():
