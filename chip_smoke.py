@@ -250,6 +250,34 @@ Phase L  training.  (a) `flash_attention_stats` (each
          warm step (flash, ssd forward, ssd backward, GEMM, the AdamW
          span, the rest, idle share).
 
+Phase M  the fleet on a device mesh in one process (`sharded`,
+         `sharded_fused`; run after Phase C, from Phase B's and C's
+         results).  (a) Phase B's fleet and stream on `sharded_fused` over
+         every visible card (``devices=0``: n_devices() equals the card
+         count) and (b) over four partitions of card 0 (a device pool that
+         repeats it; 1,024 packages a partition): exactly 8 × d and 32
+         `fleet_step` launches, one host sync a flush, the flush records
+         against Phase B's within the fleet gates (counters exact,
+         freq_min / at_risk_frac 1e-3, the rest 1e-5), every window's
+         per-lane temperatures and frequencies and the state bit-equal to
+         `fused`'s; warm ms per flush of fused, (a) and (b) in turns,
+         `run_block` per window and the kernel alone at 4,096 and 1,024
+         packages; a 129-tile degraded-fallback fleet (wide layout) and a
+         heterogeneous one of 4 × 250 packages, one window each, bit-equal.
+         (c) `sharded` per step against broadcast on the four partitions,
+         47 tiles × 4,096 over 256 steps: outputs and state bit-equal, step
+         ms of both.  (d) `serve --stream ... --fleet-backend sharded_fused
+         --fleet-devices 0` against Phase C's records, and `serve
+         --montecarlo 2000 --fleet-backend sharded_fused` against fused's
+         (per-trial statistics and the §10 lines equal), launches counted.
+         (e) `FleetService` on the four partitions in Phase J's scenario
+         (4,096 packages, four tenants, grow, canary, snapshot, restore),
+         each flush record held to a fused service fed the same chunks, one
+         device→host copy and one launch a partition a flush, the restored
+         service bit-equal to the uninterrupted one, then the state moved
+         from 4 partitions to 2 by `reshard_state` and two more flushes
+         bit-equal.
+
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -715,6 +743,7 @@ def main() -> None:
           f"redesign), bound {b_ms:.4f} ms by {b_by}; "
           f"{registers('fleet_step', 'ILi1ELb0E')}")
 
+    mesh_entry = phase_m(dev, trace, flushed, state, res)
     mc_entry = phase_i(dev, compare)
     tc_entry = phase_d(dev)
     gc_entry = phase_e(dev)
@@ -740,6 +769,7 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         **mc_entry,
+        **mesh_entry,
     }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3611,6 +3641,375 @@ def phase_l_ssd(dev) -> dict:
            "shape": "zamba2-7b [8, 1024, 112, 64/64] f32 d/b, bf16 c/x",
            "launches_rwkv6": ssd_driver["rwkv6-1.6b"]["ssd_bwd"],
            **{f"{k}_rwkv6": val for k, val in ssd_timing["rwkv6"].items()}}
+
+
+# Phase M: the fleet on a device mesh in one process.  The mesh of (b) and
+# (e): four partitions of the one card (a pool repeating cuda:0); the steps
+# of (c); the 129-tile degraded-fallback fleet (wide layout) and the
+# heterogeneous fleet of 4 × 250 packages (a partition not a multiple of the
+# warp's 32) checked over one window each
+MESH_POOL = 4
+MESH_STEPS = 256
+MESH_WIDE = (129, 512)
+MESH_HET = (47, 1000)
+
+
+def telemetry_gate(got: dict, want: dict, where: str) -> float:
+    """Two flush records' telemetry: counters exact, freq_min / at_risk_frac
+    within 1e-3, the rest within 1e-5 (|Δ| ≤ 1e-5 + 1e-5·|b|); returns the
+    worst relative difference of the 1e-5 fields."""
+    exact = ("n_packages", "events_total", "events_step", "degraded_count")
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k]
+        if k in exact:
+            check(a == b, f"{where}: {k} {a} vs {b}")
+            continue
+        tol = 1e-3 if k in ("freq_min", "at_risk_frac") else 1e-5
+        check(abs(a - b) <= tol + tol * abs(b), f"{where}: {k} {a} vs {b}")
+        if tol == 1e-5:
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-9))
+    return worst
+
+
+def states_equal(a, b) -> bool:
+    """Two fleet states (whole or partitioned), every leaf bit for bit."""
+    import torch
+
+    from repro_torch.distributed import gather
+
+    def leaves(x):
+        if x is None:
+            return []
+        if isinstance(x, tuple):
+            return [y for v in x for y in leaves(v)]
+        return [x]
+    la, lb = leaves(gather(a)), leaves(gather(b))
+    return len(la) == len(lb) and all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def phase_m(dev, trace, b_flushed, b_state, c_res) -> dict:
+    """The fleet on a device mesh in one process (`sharded` /
+    `sharded_fused`): Phase B's stream on every card and on four
+    partitions of this one, against `fused` bit for bit with its launches
+    counted; `sharded` per step against broadcast; the serving entry
+    points; the resident service with `reshard_state`."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nodebank
+    from repro_torch.core.scheduler import SchedulerConfig, ThermalScheduler
+    from repro_torch.core.workload import KINDS
+    from repro_torch.distributed import (FLEET_AXIS, fleet_mesh,
+                                         reshard_state)
+    from repro_torch.fleet import (FleetEngine, FleetService, chunk_source,
+                                   stream)
+    from repro_torch.fleet.backends.fused import FusedBackend
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    pool = [dev] * MESH_POOL
+    n_tiles, n = trace.shape[2], trace.shape[1]
+    flush = 256
+    windows = trace.shape[0] // flush
+    cfg = SchedulerConfig(n_tiles=n_tiles, mode="v24")
+    fused = FleetEngine(cfg, backend="fused", device=dev)
+    meshes = {
+        "a": FleetEngine(cfg, backend="sharded_fused", device=dev,
+                         devices=0),
+        "b": FleetEngine(cfg, backend="sharded_fused", device=dev,
+                         device_pool=pool)}
+    parts = {"a": n_cards, "b": MESH_POOL}
+    out = {}
+    for tag, eng in meshes.items():
+        # ---- (a) every visible card, (b) four partitions of card 0: the
+        # main path's stream, launches counted around it alone
+        state0 = eng.init(n)
+        d = eng.backend_impl.n_devices()
+        check(d == parts[tag], f"phase M ({tag}): {d} partitions, want "
+              f"{parts[tag]} ({eng.backend_impl.describe()})")
+        torch.cuda.synchronize()
+        fs.fleet_step.launches = 0
+        state, flushed, stats = stream(eng, state0,
+                                       chunk_source(trace, flush))
+        torch.cuda.synchronize()
+        launches = fs.fleet_step.launches
+        check(launches == windows * d,
+              f"phase M ({tag}): {launches} fleet_step launches, want "
+              f"{windows} x {d}")
+        check(stats.flushes == stats.host_syncs == windows,
+              f"phase M ({tag}): {stats.flushes} flushes, "
+              f"{stats.host_syncs} host syncs")
+        worst = max(telemetry_gate(g, w, f"phase M ({tag}) flush {i}")
+                    for i, (g, w) in enumerate(zip(flushed, b_flushed)))
+        same = flushed == b_flushed
+        check(states_equal(state, b_state),
+              f"phase M ({tag}): final state differs from fused's")
+        # per-lane traces, window by window, against fused's
+        sf, sm = fused.init(n), eng.init(n)
+        for w in range(windows):
+            chunk = trace[w * flush:(w + 1) * flush]
+            sf, tf, ff = fused.block_traces(sf, fused.backend_impl.put_trace(
+                chunk))
+            sm, tm, fm = eng.block_traces(sm, eng.backend_impl.put_trace(
+                chunk))
+            check(torch.equal(tm, tf) and torch.equal(fm, ff),
+                  f"phase M ({tag}) window {w}: per-lane traces differ "
+                  f"from fused's")
+        check(states_equal(sm, sf), f"phase M ({tag}): state differs")
+        out[tag] = {"describe": eng.backend_impl.describe(),
+                    "partitions": d, "launches": launches,
+                    "records_equal": same, "worst_rel": worst}
+        print(f"[phaseM] ({tag}) {eng.backend_impl.describe()}: Phase B's "
+              f"stream ({n} x {n_tiles}, {windows} flushes of {flush}), "
+              f"{launches} fleet_step launches ({windows} x {d}), "
+              f"{stats.host_syncs} host syncs; per-lane temps, freqs and "
+              f"state bit-equal to fused in every window; flush records "
+              f"{'equal' if same else 'within the gates'} (worst rel "
+              f"{worst:.2e})")
+        del sf, sm, tf, ff, tm, fm
+
+    # warm ms per flush: the whole stream, host clock after a synchronize,
+    # fused and the two meshes in turns (f, a, b, b, a, f)
+    def stream_ms(eng) -> float:
+        st = eng.init(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream(eng, st, chunk_source(trace, flush))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / windows
+
+    engines = {"fused": fused, **meshes}
+    runs = {k: [] for k in engines}
+    for k in ("fused", "a", "b", "b", "a", "fused"):
+        runs[k].append(stream_ms(engines[k]))
+    # one window's run_block from the warm state of flush 4 (CUDA events,
+    # median of 10): one launch on fused, one a partition on the meshes
+    peak = min(3, windows - 1)
+    window_ms = {}
+    for k, eng in engines.items():
+        st = eng.init(n)
+        for w in range(peak):
+            st = eng.backend_impl.run_block(st, eng.backend_impl.put_trace(
+                trace[w * flush:(w + 1) * flush]))[0]
+        chunk = eng.backend_impl.put_trace(
+            trace[peak * flush:(peak + 1) * flush])
+        eng.backend_impl.run_block(st, chunk)
+        window_ms[k] = event_ms(lambda: eng.backend_impl.run_block(st, chunk),
+                                10)
+    # the kernel alone on the same window: one launch over the whole fleet
+    # and one over a quarter of it (a partition of (b))
+    launch_ms = {}
+    for m in (n, n // MESH_POOL):
+        be = FusedBackend(ThermalScheduler(cfg, device=dev))
+        _, _, args, kwargs = warm_window(be, be.init(m), trace[:, :m], flush,
+                                         peak)
+        fs.fleet_step(*args, **kwargs)
+        launch_ms[m] = event_ms(lambda: fs.fleet_step(*args, **kwargs), 10)
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"[phaseM] warm ms per flush (the stream's host clock after a "
+          f"synchronize, mean of 2 in turns f, a, b, b, a, f): "
+          + json.dumps({k: [round(x, 3) for x in v] for k, v in runs.items()})
+          + "; run_block on flush 4 from its warm state (CUDA events, "
+          "median of 10): " + json.dumps(
+              {k: round(v, 4) for k, v in window_ms.items()})
+          + "; the fleet_step kernel alone on that window by packages "
+          "(CUDA events, median of 10): " + json.dumps(
+              {k: round(v, 4) for k, v in launch_ms.items()}))
+
+    # the per-package planes on the 4-partition mesh, one window each: a
+    # 129-tile degraded-fallback fleet (wide layout) with a NaN span, and a
+    # heterogeneous fleet of 4 x 250 packages (node banks in turn)
+    for what, (tiles, m) in (("wide", MESH_WIDE), ("het", MESH_HET)):
+        kw = (dict(degraded_fallback=True) if what == "wide"
+              else dict(heterogeneous=True))
+        pcfg = SchedulerConfig(n_tiles=tiles, mode="v24", **kw)
+        ef = FleetEngine(pcfg, backend="fused", device=dev)
+        em = FleetEngine(pcfg, backend="sharded_fused", device=dev,
+                         device_pool=pool)
+        pkg = None
+        if what == "het":
+            nodes = ("base", "n7", "n5", "n3")
+            pkg = nodebank.fleet_package_params(
+                ef.sched, [nodes[i % 4] for i in range(m)])
+        w_trace = fleet_trace(tiles, m, flush)
+        if what == "wide":
+            w_trace[40:90, 7, :] = np.nan
+        sf, sm = ef.init(m, pkg=pkg), em.init(m, pkg=pkg)
+        before = fs.fleet_step.launches
+        sm, tm, fm = em.block_traces(sm, em.backend_impl.put_trace(w_trace))
+        torch.cuda.synchronize()
+        got = fs.fleet_step.launches - before
+        sf, tf, ff = ef.block_traces(sf, ef.backend_impl.put_trace(w_trace))
+        check(got == MESH_POOL, f"phase M {what}: {got} launches")
+        check(torch.equal(tm, tf) and torch.equal(fm, ff)
+              and states_equal(sm, sf),
+              f"phase M {what}: {em.backend_impl.describe()} differs from "
+              f"fused")
+        print(f"[phaseM] {what}: {m} packages x {tiles} tiles on "
+              f"{em.backend_impl.describe()} ({m // MESH_POOL} a "
+              f"partition), one window of {flush}: {got} launches, traces "
+              f"and state bit-equal to fused")
+
+    # ---- (c) sharded, per step, against broadcast on four partitions
+    eb = FleetEngine(cfg, backend="broadcast", device=dev)
+    es = FleetEngine(cfg, backend="sharded", device=dev, device_pool=pool)
+    sb, ss = eb.init(n), es.init(n)
+    steps = torch.from_numpy(trace[peak * flush:peak * flush
+                                   + MESH_STEPS]).to(dev)
+    step_ms = {"broadcast": [], "sharded": []}
+    c_worst = 0.0
+    for k in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sb, ob, tb = eb.step(sb, steps[k])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ss, os_, ts = es.step(ss, steps[k])
+        torch.cuda.synchronize()
+        step_ms["broadcast"].append((t1 - t0) * 1e3)
+        step_ms["sharded"].append((time.perf_counter() - t1) * 1e3)
+        for f in ("freq", "temp_c", "hint_w", "at_risk", "balance"):
+            check(torch.equal(getattr(os_, f), getattr(ob, f)),
+                  f"phase M (c) step {k}: {f} differs from broadcast")
+        c_worst = max(c_worst, telemetry_gate(ts.as_dict(), tb.as_dict(),
+                                              f"phase M (c) step {k}"))
+    check(states_equal(ss, sb), "phase M (c): state differs from broadcast")
+    print(f"[phaseM] (c) {es.backend_impl.describe()} per step vs broadcast, "
+          f"{n} x {n_tiles} over {MESH_STEPS} steps from flush 4's start: "
+          f"outputs and state bit-equal, telemetry worst rel {c_worst:.2e}; "
+          f"median step ms (host clock) broadcast "
+          f"{np.median(step_ms['broadcast']):.2f}, sharded "
+          f"{np.median(step_ms['sharded']):.2f}")
+    del eb, es, sb, ss
+
+    # ---- (d) the serving entry points on the mesh, in process
+    argv = SERVE_STREAM_ARGV[:]
+    argv[argv.index("fused")] = "sharded_fused"
+    waves = int(argv[argv.index("--waves") + 1])
+    fs.fleet_step.launches = 0
+    res = serve.main(argv + ["--fleet-devices", "0"])
+    torch.cuda.synchronize()
+    d_stream = fs.fleet_step.launches
+    check(d_stream == waves * n_cards and res["host_syncs"] == waves,
+          f"serve --stream on sharded_fused: {d_stream} launches, "
+          f"{res['host_syncs']} host syncs")
+    for i, (g, w) in enumerate(zip(res["stream"], c_res["stream"])):
+        telemetry_gate(g, w, f"phase M (d) serve --stream flush {i}")
+    mc_argv = MC_ARGV[:]
+    mc_argv[mc_argv.index("fused")] = "sharded_fused"
+    want = serve.main(MC_ARGV)
+    fs.fleet_step.launches = 0
+    got = serve.main(mc_argv)
+    torch.cuda.synchronize()
+    d_mc = fs.fleet_step.launches
+    again = serve.main(MC_ARGV)        # fused warm, for the trials/s
+    blocks = 2 * -(-MC_STEPS // MC_CHUNK)          # two surveys' blocks
+    check(d_mc == blocks * n_cards, f"serve --montecarlo on sharded_fused: "
+          f"{d_mc} launches, want {blocks} x {n_cards}")
+    for f in got["result"]._fields:
+        check(torch.equal(getattr(got["result"], f),
+                          getattr(want["result"], f)),
+              f"serve --montecarlo on sharded_fused: {f} differs")
+    check(got["montecarlo"] == want["montecarlo"],
+          "serve --montecarlo: the §10 statistics differ from fused's")
+    print(f"[phaseM] (d) serve --stream --fleet-backend sharded_fused "
+          f"--fleet-devices 0: {d_stream} launches, records "
+          f"{'equal to' if res['stream'] == c_res['stream'] else 'within the gates of'}"
+          f" Phase C's; serve --montecarlo {MC_ARGV[1]} on sharded_fused: "
+          f"{d_mc} "
+          f"launches, per-trial statistics and the §10 lines equal to "
+          f"fused's ({got['trials_per_s']:.0f} vs {again['trials_per_s']:.0f}"
+          f" trials/s, fused's second run; its first "
+          f"{want['trials_per_s']:.0f})")
+
+    # ---- (e) the resident service on four partitions against the same
+    # service on fused (Phase J's scenario: four tenants, grow, canary,
+    # snapshot, restore), fed the mesh service's chunks; then the state
+    # resharded from 4 partitions to 2
+    scfg = SchedulerConfig(n_tiles=SVC_TILES, mode="v24", mixed_mode=True)
+    snap = ROOT / "build" / "phase_m_snapshots"
+    shutil.rmtree(snap, ignore_errors=True)
+    svc = FleetService(scfg, backend="sharded_fused", flush_every=SVC_FLUSH,
+                       snapshot_dir=str(snap), log_capacity=8, device=dev,
+                       device_pool=pool)
+    ref = FleetService(scfg, backend="fused", flush_every=SVC_FLUSH,
+                       log_capacity=8, device=dev)
+    for i in range(SVC_PACKAGES):
+        for s_ in (svc, ref):
+            s_.attach(f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4])
+    _, per_copy = count_syncs(lambda: torch.ones(3, device=dev).cpu())
+    e_worst, e_ticks = 0.0, []
+
+    def tick():
+        nonlocal e_worst
+        syncs0, l0 = svc.host_syncs, fs.fleet_step.launches
+        rec, k = count_syncs(lambda: svc.tick())
+        d = svc.engine.backend_impl.n_devices()
+        check(svc.host_syncs == syncs0 + 1 and k == per_copy,
+              f"phase M (e) flush {rec['flush']}: {k} synchronizing calls "
+              f"(one copy makes {per_copy})")
+        check(fs.fleet_step.launches - l0 == len(svc.state.freq.parts),
+              f"phase M (e) flush {rec['flush']}: "
+              f"{fs.fleet_step.launches - l0} launches on {d} partitions")
+        want = ref.tick(chunk=rec["rho"])
+        e_worst = max(e_worst, records_close(rec, want,
+                                             f"phase M (e) flush "
+                                             f"{rec['flush']}"))
+        e_ticks.append(dict(svc.last_tick_ms))
+        return rec
+
+    tick()
+    tick()
+    for s_ in (svc, ref):                    # n + 1 packages: grow to 2n
+        s_.attach("extra", "acme", "training")
+    tick()
+    for s_ in (svc, ref):
+        s_.canary(0.25)
+        s_.set_thresholds("zeta", t_crit_c=60.0)
+    tick()
+    svc.save_snapshot(blocking=True)
+    final = tick()
+    check(states_equal(svc.state, ref.state),
+          "phase M (e): service state differs from the fused service's")
+    t0 = time.perf_counter()
+    restored = FleetService.restore(str(snap), device=dev, device_pool=pool)
+    while restored.flushes < svc.flushes:
+        restored.tick()
+    restore_s = time.perf_counter() - t0
+    check(states_equal(restored.state, svc.state),
+          "phase M (e): restored state differs from the uninterrupted one")
+    specs = svc.engine.sched.state_pspecs(batch_axes=(FLEET_AXIS,))
+    before = [p.shape[0] for p in svc.state.freq.parts]
+    svc.state = reshard_state(svc.state, fleet_mesh(2, pool), specs)
+    check(len(svc.state.freq.parts) == 2, "reshard_state: not 2 partitions")
+    tick()
+    tick()
+    check(states_equal(svc.state, ref.state),
+          "phase M (e): resharded service state differs from fused's")
+    med = {k: float(np.median([t[k] for t in e_ticks])) for k in e_ticks[0]}
+    print(f"[phaseM] (e) FleetService on "
+          f"{svc.engine.backend_impl.describe()} ({SVC_PACKAGES} packages "
+          f"x {SVC_TILES} tiles, four tenants, grow to "
+          f"{svc.registry.capacity}, canary, snapshot, restore): "
+          f"{len(e_ticks)} flushes, 1 D2H copy and one fleet_step launch a "
+          f"partition each, every record held to the fused service's "
+          f"(worst rel {e_worst:.2e}), final state bit-equal; restore + "
+          f"catch-up {restore_s:.2f} s, bit-equal; reshard_state "
+          f"{before} -> {[p.shape[0] for p in svc.state.freq.parts]}, two "
+          f"more flushes bit-equal; median host ms a flush "
+          + json.dumps({k: round(v, 3) for k, v in med.items()}))
+    shutil.rmtree(snap, ignore_errors=True)
+    print(f"[phaseM] phase M {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_mesh_a": out["a"]["launches"],
+            "launches_mesh_b": out["b"]["launches"],
+            "ms_per_flush_mesh": ms, "run_block_ms_mesh": window_ms,
+            "launch_ms_by_packages": launch_ms}
 
 
 if __name__ == "__main__":

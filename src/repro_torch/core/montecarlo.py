@@ -184,11 +184,14 @@ def _scheduler_cfg(cfg: dvfs.DVFSConfig, lanes: int, mode: str,
 
 @functools.lru_cache(maxsize=16)
 def _engine(scfg: SchedulerConfig, fp: Fingerprint, backend: str,
-            device: torch.device):
+            device: torch.device, devices: int | None = None,
+            device_pool: tuple | None = None):
     """One engine per distinct configuration (a fitted plant or the
-    kernel's constants are built once, not per experiment)."""
+    kernel's constants are built once, not per experiment); ``devices`` /
+    ``device_pool`` go to the device-mesh backends only."""
     from repro_torch.fleet import FleetEngine
-    return FleetEngine(scfg, fp=fp, backend=backend, device=device)
+    return FleetEngine(scfg, fp=fp, backend=backend, device=device,
+                       devices=devices, device_pool=device_pool)
 
 
 def run(seed: int = 2_000, n_trials: int = 2_000, n_steps: int = 3_000,
@@ -197,7 +200,8 @@ def run(seed: int = 2_000, n_trials: int = 2_000, n_steps: int = 3_000,
         fp: Fingerprint = FINGERPRINT, *,
         backend: str = "broadcast", filtration_impl: str = "incremental",
         plant: str = "pole", corr: float = 0.0,
-        draws=None, device=None) -> MCResult:
+        draws=None, device=None, devices: int | None = None,
+        device_pool=None) -> MCResult:
     """The paired (baseline, V24) Monte-Carlo experiment at fleet scale.
 
     One trial = one lane of a heterogeneous `FleetEngine` fleet; baseline
@@ -207,6 +211,8 @@ def run(seed: int = 2_000, n_trials: int = 2_000, n_steps: int = 3_000,
     traces [N, T]) replaces the sampled population (``n_trials`` /
     ``n_steps`` then follow it).  Under ``plant`` "grid" / "rom" the fleet
     runs homogeneous physics and the trials differ by workload only.
+    ``devices`` / ``device_pool`` place a ``sharded`` / ``sharded_fused``
+    fleet on a device mesh (`FleetEngine`).
     """
     cfg = dvfs.DVFSConfig() if cfg is None else cfg
     dev = resolve_device(device)
@@ -223,7 +229,8 @@ def run(seed: int = 2_000, n_trials: int = 2_000, n_steps: int = 3_000,
 
     def survey(mode: str):
         eng = _engine(_scheduler_cfg(cfg, lanes, mode, filtration_impl,
-                                     plant), fp, backend, dev)
+                                     plant), fp, backend, dev, devices,
+                      None if device_pool is None else tuple(device_pool))
         pkg = None
         if plant == "pole":
             pkg = eng.sched.package_params(

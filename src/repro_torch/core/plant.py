@@ -90,8 +90,22 @@ class ThermalPlant:
     def delta_t(self, state):
         raise NotImplementedError
 
+    def state_pspec(self, batch_axes: tuple):
+        """The thermal leaf's pspec (`repro_torch.distributed.sharding`):
+        its package dimension — the first batch axis given a mesh-axis
+        name — or None (whole); the two trailing model-internal dims are
+        never partitioned, for every rung (`init_state` always emits two)."""
+        return package_dim(batch_axes)
+
     def describe(self) -> str:
         return self.name
+
+
+def package_dim(batch_axes: tuple) -> int | None:
+    """The dimension a batch layout partitions: the first of
+    ``batch_axes`` (one mesh-axis name or None per leading batch dim) that
+    names a mesh axis, or None."""
+    return next((i for i, a in enumerate(batch_axes) if a is not None), None)
 
 
 @register_plant

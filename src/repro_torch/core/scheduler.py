@@ -317,6 +317,44 @@ class ThermalScheduler:
             ctrl_mode=zeros(batch_shape, torch.bool) if c.mixed_mode else None,
         )
 
+    def state_pspecs(self, batch_axes: tuple = (None,)) -> SchedulerState:
+        """The pspec tree congruent with ``init(batch_shape)``'s state
+        (`repro_torch.distributed.sharding`): every per-package leaf names
+        its package dimension (`plant.package_dim` of ``batch_axes``, one
+        mesh-axis name or None per batch dim), the per-package draws and
+        planes included; the shared ``step`` and filtration ``ptr`` clocks
+        are None — whole on every partition.  The hook the mesh backends
+        place and map the state with."""
+        d = plant_mod.package_dim(tuple(batch_axes))
+        c = self.cfg
+        if c.filtration_impl == "incremental":
+            ft = pdu_gate.FiltrationStats(buf=d, ptr=None, wsum=d, csum=d,
+                                          rsum=d)
+        else:
+            ft = pdu_gate.Filtration(buf=d, ptr=None)
+        fb = c.degraded_fallback
+        return SchedulerState(
+            thermal=self.plant.state_pspec(tuple(batch_axes)),
+            filtration=ft,
+            freq=d,
+            step=None,
+            events=d,
+            pkg=(PackageParams(decay=d, gain=d, eta=d, gain_sum=d,
+                               poll_ticks=d) if c.heterogeneous else None),
+            throttled=(d if c.mode == "reactive_poll" or fb or c.mixed_mode
+                       else None),
+            rho_last=d if fb else None,
+            stale=d if fb else None,
+            degraded=d if fb else None,
+            ctrl_mode=d if c.mixed_mode else None)
+
+    def output_pspecs(self, batch_axes: tuple = (None,)) -> SchedulerOutput:
+        """The pspec tree congruent with `update`'s output: the scalar η
+        shared, everything else per package."""
+        d = plant_mod.package_dim(tuple(batch_axes))
+        return SchedulerOutput(freq=d, temp_c=d, hint_w=d, eta=None,
+                               at_risk=d, balance=d)
+
     def _couple(self, p: torch.Tensor) -> torch.Tensor:
         return p if self.gamma is None else apply_coupling(self.gamma, p)
 

@@ -4,9 +4,9 @@ Port of `repro.distributed.fault_tolerance` (host-side, no device code).
 The resident control plane (`repro_torch.fleet.service`) arms a
 `Heartbeat` as its stalled-flush watchdog, and `serve --serve` holds a
 `PreemptionGuard` so that SIGTERM takes one final blocking snapshot;
-checkpoint atomicity lives in `repro_torch.checkpoint`.  The reference's
-``reshard_state`` (elastic re-mesh) needs a device mesh and waits for the
-multi-GPU step (ROADMAP queue 1 step 9).
+checkpoint atomicity lives in `repro_torch.checkpoint`.  `reshard_state`
+(elastic re-mesh) re-places a fleet state from one device mesh onto
+another with a different partition count.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import signal
 import threading
 import time
 from typing import Callable
+
+from repro_torch.distributed import sharding
 
 
 class Heartbeat:
@@ -76,3 +78,14 @@ class PreemptionGuard:
     def restore(self):
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
+
+
+def reshard_state(state, new_mesh, spec_tree):
+    """Elastic re-mesh: every partitioned leaf of ``state`` re-placed on
+    ``new_mesh`` (a `distributed.sharding.fleet_mesh`) by the congruent
+    pspecs ``spec_tree`` (`ThermalScheduler.state_pspecs`) — each new
+    partition assembled from the old partitions that hold its packages,
+    nothing gathered whole; a whole state is split; shared leaves (the host
+    clocks) stay as they are.  Pure data movement: every lane keeps its
+    bits."""
+    return sharding.place(state, new_mesh, spec_tree)

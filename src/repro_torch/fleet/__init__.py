@@ -1,7 +1,8 @@
 """Fleet-scale batched scheduler engine (thousands of packages per step).
 
 Port of `repro.fleet`: `engine` (backend-agnostic stepping, telemetry and
-the Monte-Carlo survey) over `backends` (broadcast / fused / vmap) under
+the Monte-Carlo survey) over `backends` (broadcast / fused / vmap, and
+sharded / sharded_fused on a device mesh in one process) under
 `ingest` (the streaming serving loop with bounded look-ahead ingest),
 `faults` (seeded fault injection at the ingest and engine boundaries) and
 `groups` (mixed-plant fleets, one sub-fleet per plant group), with the
@@ -9,7 +10,8 @@ control plane on top: `registry` (dynamic membership in power-of-two
 capacity pools), `alerts` (per-tenant stats on the device + edge-latched
 alert sinks) and `service` (the resident multi-tenant serving service with
 its HTTP operator API; docs/torch_serving.md).  The multi-host ingest
-waits for the multi-GPU step (ROADMAP queue 1 step 9).
+(`distributed_ingest`) waits for the multi-process mesh (ROADMAP queue 1
+step 9b).
 """
 from repro_torch.fleet.alerts import (AlertEngine, JsonlSink, LogSink,
                                       TenantWindowStats, WebhookSink,

@@ -48,6 +48,10 @@ class FleetBackend:
     """One strategy for stepping N packages' schedulers at once."""
 
     name: str = ""
+    # device-mesh backends (sharded / sharded_fused) take a ``devices=``
+    # budget and a ``device_pool`` in their constructor; `FleetEngine`
+    # forwards its own only to backends that declare this
+    accepts_devices: bool = False
 
     def __init__(self, sched: ThermalScheduler):
         self.sched = sched
@@ -92,10 +96,17 @@ class FleetBackend:
         return host
 
     def put_mask(self, mask) -> torch.Tensor:
-        """Place an [n_packages] bool active-lane mask on the device."""
+        """Place an [n_packages] bool active-lane mask on the device (it
+        partitions like the package axis of the state: whole here, one
+        partition per mesh position under the mesh backends)."""
         if torch.is_tensor(mask):
             return mask.to(self.device)
         return torch.as_tensor(np.asarray(mask), device=self.device)
+
+    def place(self, state: SchedulerState) -> SchedulerState:
+        """A whole-fleet state (a restored snapshot, a resized one) in
+        this backend's layout: as it is for the single-device backends."""
+        return state
 
     # -- introspection ----------------------------------------------------
     def n_devices(self) -> int:

@@ -10,7 +10,11 @@ pluggable backend (`repro_torch.fleet.backends`):
     one `fleet_step` call: on CUDA one launch of the Hopper kernel;
   * ``vmap``      — per-lane clocks, one `update` per step (the
     reference's per-package layout; a lane attached mid-flight restarts
-    its own clocks).
+    its own clocks);
+  * ``sharded``   — the package axis partitioned over a 1-D device mesh,
+    one broadcast-layout `update` per partition per step;
+  * ``sharded_fused`` — fused × sharded: one `fleet_step` launch per
+    partition per window, each on its partition's device.
 
     eng = FleetEngine(SchedulerConfig(n_tiles=4, mode="v24"),
                       backend="fused")            # device defaults to CUDA
@@ -34,17 +38,27 @@ State contract:
   * **Devices.**  The engine runs on the device it is given and defaults to
     CUDA; without a card it raises unless the caller passes
     ``device="cpu"``.
+  * **The mesh.**  The mesh backends take ``devices`` (a budget: None or 0
+    for the whole pool) and ``device_pool`` (the devices the mesh may take:
+    every visible card by default; entries may repeat one device).  Their
+    state's per-package leaves are partitioned
+    (`repro_torch.distributed.sharding.Sharded`); the step has no
+    cross-lane operation, and the telemetry reductions — percentiles over
+    the whole active fleet, never per partition — run on the streamed
+    traces gathered onto the engine's device, still one device→host copy a
+    flush.  `gather` and `lanes` give whole views of a partitioned state.
 
 `run_survey` is the §10 Monte-Carlo plane: per-(package, tile) peak
 temperature, exceedance and mean frequency, reduced on the device over
 ``chunk``-step blocks of the fused kernel (or per step on the broadcast
-backend).  Fleets with per-package planes (heterogeneous draws, the
-degraded fallback, operator pins) report the fallback's lanes in
-``degraded_count`` and count events per lane mode, as the kernel does.
+backend); on a mesh its per-lane accumulators are partitioned like the
+state and the finished survey is gathered.  Fleets with per-package planes
+(heterogeneous draws, the degraded fallback, operator pins) report the
+fallback's lanes in ``degraded_count`` and count events per lane mode, as
+the kernel does.
 
-Not ported yet: the mesh backends and their ``devices=`` budget (ROADMAP
-queue 1 step 9), and state donation (PyTorch allocates each window's
-outputs afresh).
+Not ported: a mesh spanning processes (ROADMAP queue 1 step 9b), and state
+donation (PyTorch allocates each window's outputs afresh).
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ from repro_torch.core.density import rtok_from_rho
 from repro_torch.core.fingerprint import FINGERPRINT, Fingerprint
 from repro_torch.core.scheduler import (SchedulerConfig, SchedulerOutput,
                                         SchedulerState, ThermalScheduler)
+from repro_torch.distributed import sharding
 from repro_torch.fleet.backends import backend_class
 
 _I32 = torch.int32
@@ -160,20 +175,30 @@ def _masked_quantile(sorted_v: torch.Tensor, cnt, q: float) -> torch.Tensor:
 class FleetEngine:
     """Fleet stepper around one `ThermalScheduler` config.
 
-    ``backend`` is a registered backend name (``broadcast``/``fused``).
-    ``device`` defaults to CUDA (see module docstring).  ``debug_nan``
-    host-checks every returned state and telemetry record for NaN/Inf and
-    raises with the offending lanes.
+    ``backend`` is a registered backend name (``broadcast``/``fused``/
+    ``vmap``/``sharded``/``sharded_fused``).  ``device`` defaults to CUDA
+    (see module docstring).  ``devices`` (a budget) and ``device_pool``
+    are forwarded to the device-mesh backends only; any other backend
+    refuses them.  ``debug_nan`` host-checks every returned state and
+    telemetry record for NaN/Inf and raises with the offending lanes.
     """
 
     def __init__(self, cfg: SchedulerConfig | None = None,
                  fp: Fingerprint = FINGERPRINT, backend: str = "broadcast",
-                 device=None, debug_nan: bool = False):
+                 device=None, debug_nan: bool = False,
+                 devices: int | None = None, device_pool=None):
         self.cfg = cfg = SchedulerConfig() if cfg is None else cfg
         self.fp = fp
         cls = backend_class(backend)
+        if (devices is not None or device_pool is not None) \
+                and not cls.accepts_devices:
+            raise ValueError(
+                f"devices={devices} / device_pool only apply to device-mesh "
+                f"backends (sharded/sharded_fused), got backend={backend!r}")
         self.sched = ThermalScheduler(cfg, fp, device=device)
-        self.backend_impl = cls(self.sched)
+        kw = (dict(devices=devices, device_pool=device_pool)
+              if cls.accepts_devices else {})
+        self.backend_impl = cls(self.sched, **kw)
         self.device = self.sched.device
         self.backend = self.backend_impl.name
         self.debug_nan = debug_nan
@@ -249,17 +274,21 @@ class FleetEngine:
         accumulators instead of an O(T·n) trace.  A backend with a fused
         `run_block` advances ``chunk``-step blocks through its kernel (one
         launch each) and reduces the streamed traces; the others reduce
-        after every `update`.
+        after every `update`.  On a mesh the accumulators are partitioned
+        like the state, each reduced on its partition's device, and the
+        finished survey is gathered onto the engine's device.
         """
         self._check_trace(rho_trace)
         t = rho_trace.shape[0]
         if not 0 <= burn_in < t:
             raise ValueError(f"burn_in={burn_in} outside the trace [0, {t})")
-        shape, dev = state.freq.shape, self.device
-        acc = (torch.full(shape, -torch.inf, device=dev),   # running peak T
-               torch.zeros(shape, device=dev),              # exceedance count
-               torch.zeros(shape, device=dev),              # Σ freq (Kahan)
-               torch.zeros(shape, device=dev))              # compensation
+        mesh = sharding.mesh_of(state)
+        acc = sharding.fleet_shard_map(
+            lambda f: (torch.full_like(f, -torch.inf),     # running peak T
+                       torch.zeros_like(f),                # exceedance count
+                       torch.zeros_like(f),                # Σ freq (Kahan)
+                       torch.zeros_like(f)),               # compensation
+            mesh, (0,), (0,) * 4)(state.freq)
         put = self.backend_impl.put_trace
         if self.backend_impl.run_block is None:
             state, acc = self._survey_steps(state, put(rho_trace), burn_in,
@@ -269,13 +298,13 @@ class FleetEngine:
                 state, acc = self._survey_block(
                     state, put(rho_trace[i:i + chunk]), max(burn_in - i, 0),
                     acc)
-        peak, exceed, fsum, _ = acc
-        return state, FleetSurvey(
-            peak_t_c=peak,
-            exceed_frac=exceed / (t - burn_in),
-            freq_mean=fsum / t,
+        peak, exceed, fmean = sharding.fleet_shard_map(
+            lambda p, e, f: (p, e / (t - burn_in), f / t), mesh, (0,) * 3,
+            (0,) * 3)(*acc[:3])
+        return state, self.gather(FleetSurvey(
+            peak_t_c=peak, exceed_frac=exceed, freq_mean=fmean,
             steps=torch.tensor(t, dtype=_I32),
-            counted_steps=torch.tensor(t - burn_in, dtype=_I32))
+            counted_steps=torch.tensor(t - burn_in, dtype=_I32)))
 
     @staticmethod
     def _kahan(fsum, comp, x):
@@ -286,26 +315,10 @@ class FleetEngine:
         tot = fsum + y
         return tot, (tot - fsum) - y
 
-    def _survey_steps(self, state: SchedulerState, rho_trace, skip: int,
-                      acc):
-        """Per-step survey: one `update` a step, the accumulators advanced
-        after each (the first ``skip`` steps count toward Σfreq only)."""
-        peak, exceed, fsum, comp = acc
-        t_crit = self.fp.t_crit_c
-        for k, rho in enumerate(rho_trace):
-            state, out = self.backend_impl.update(state, rho)
-            if k >= skip:
-                peak = torch.maximum(peak, out.temp_c)
-                exceed = exceed + (out.temp_c > t_crit).to(exceed.dtype)
-            fsum, comp = self._kahan(fsum, comp, out.freq)
-        return state, (peak, exceed, fsum, comp)
-
-    def _survey_block(self, state: SchedulerState, rho_trace, skip: int,
-                      acc):
-        """Fused-backend survey: one kernel launch for the block, then the
-        lane reductions over its streamed temp/freq traces."""
-        peak, exceed, fsum, comp = acc
-        state, temps, freqs = self.backend_impl.run_block(state, rho_trace)
+    def _fold(self, peak, exceed, fsum, comp, temps, freqs, skip: int):
+        """A block's [T, n, tiles] traces folded into the per-lane
+        accumulators: steps from ``skip`` on count toward the peak and the
+        exceedance, every step toward Σfreq."""
         if skip < temps.shape[0]:
             counted = temps[skip:]
             peak = torch.maximum(peak, counted.amax(0))
@@ -316,19 +329,46 @@ class FleetEngine:
         # or device the sum ran on
         fsum, comp = self._kahan(fsum, comp,
                                  freqs.sum(0, dtype=torch.float64).float())
-        return state, (peak, exceed, fsum, comp)
+        return peak, exceed, fsum, comp
+
+    def _survey_steps(self, state: SchedulerState, rho_trace, skip: int,
+                      acc):
+        """Per-step survey: one `update` a step, the accumulators advanced
+        after each (the first ``skip`` steps count toward Σfreq only), on
+        each partition's device."""
+        mesh = sharding.mesh_of(state)
+        for k, rho in enumerate(rho_trace):
+            state, out = self.backend_impl.update(state, rho)
+            acc = sharding.fleet_shard_map(
+                lambda *a: self._fold(*a[:4], a[4][None], a[5][None],
+                                      0 if k >= skip else 1),
+                mesh, (0,) * 6, (0,) * 4)(*acc, out.temp_c, out.freq)
+        return state, acc
+
+    def _survey_block(self, state: SchedulerState, rho_trace, skip: int,
+                      acc):
+        """Fused-backend survey: one kernel launch for the block (one a
+        partition on a mesh), then the lane reductions over its streamed
+        temp/freq traces."""
+        state, temps, freqs = self.backend_impl.run_block(state, rho_trace)
+        return state, sharding.fleet_shard_map(
+            lambda *a: self._fold(*a, skip), sharding.mesh_of(state),
+            (0, 0, 0, 0, 1, 1), (0,) * 4)(*acc, temps, freqs)
 
     def block_traces(self, state: SchedulerState, rho_trace):
         """(state', temps [T, n, tiles], freqs [T, n, tiles]) for one
         window — the backend's fused kernel when it has one, else a loop of
-        `update`."""
+        `update` — the traces whole on the engine's device (gathered from a
+        mesh's partitions)."""
         if self.backend_impl.run_block is not None:
-            return self.backend_impl.run_block(state, rho_trace)
+            state, temps, freqs = self.backend_impl.run_block(state,
+                                                              rho_trace)
+            return state, self.gather(temps), self.gather(freqs)
         temps, freqs = [], []
         for rho in rho_trace:
             state, out = self.backend_impl.update(state, rho)
-            temps.append(out.temp_c)
-            freqs.append(out.freq)
+            temps.append(self.gather(out.temp_c))
+            freqs.append(self.gather(out.freq))
         return state, torch.stack(temps), torch.stack(freqs)
 
     def window_telemetry(self, rho_trace, temps, freqs, prev_events,
@@ -336,8 +376,24 @@ class FleetEngine:
                          active=None) -> FleetTelemetry:
         """The [T]-leaved record derived from a window's temp/freq traces;
         `.reduce()` collapses it to one flush record."""
-        return self._telemetry_from_traces(rho_trace, temps, freqs,
-                                           prev_events, state0, active)
+        return self._telemetry_from_traces(
+            self.gather(rho_trace), self.gather(temps), self.gather(freqs),
+            prev_events, self.lanes(state0), self.gather(active))
+
+    def gather(self, tree):
+        """``tree`` (a state, output, trace or mask) with every partition of
+        a mesh backend concatenated onto the engine's device; whole trees
+        pass through unchanged."""
+        return sharding.gather(tree, self.device)
+
+    def lanes(self, state: SchedulerState) -> SchedulerState:
+        """The state's per-lane leaves whole on the engine's device — what
+        the telemetry reductions read (events, latch, fallback and mode
+        planes, draws, clocks) — with the ring and pole states left out
+        (None) on a mesh; a whole state is returned as it is."""
+        if not sharding.is_sharded(state):
+            return state
+        return self.gather(state._replace(thermal=None, filtration=None))
 
     # ------------------------------------------------------------- internals
     @staticmethod
@@ -351,7 +407,7 @@ class FleetEngine:
         if not self.debug_nan:
             return
         for name in ("freq", "thermal"):
-            a = getattr(state, name)
+            a = self.gather(getattr(state, name))
             bad = ~torch.isfinite(a)
             if bool(bad.any()):
                 lanes = torch.unique(torch.nonzero(bad)[:, 0]).tolist()
@@ -368,7 +424,9 @@ class FleetEngine:
         if active is None:
             return None
         n = state.freq.shape[0]
-        arr = self.backend_impl.put_mask(active)
+        # placed like the state's package axis, then whole for the
+        # reductions, which cross lanes
+        arr = self.gather(self.backend_impl.put_mask(active))
         if tuple(arr.shape) != (n,) or arr.dtype != torch.bool:
             raise ValueError(
                 f"active mask must be a [{n}] bool array (one flag per "
@@ -422,26 +480,27 @@ class FleetEngine:
             degraded_count=degraded_count,
         )
 
-    def _step_impl(self, state: SchedulerState, rho: torch.Tensor,
-                   active=None):
-        prev_events = (state.events.sum(dtype=_I32) if active is None
-                       else torch.where(active, state.events, 0
+    def _step_impl(self, state: SchedulerState, rho, active=None):
+        lanes0 = self.lanes(state)
+        prev_events = (lanes0.events.sum(dtype=_I32) if active is None
+                       else torch.where(active, lanes0.events, 0
                                         ).sum(dtype=_I32))
         state, out = self.backend_impl.update(state, rho)
+        lanes, out, rho = self.lanes(state), self.gather(out), self.gather(rho)
         if self.cfg.degraded_fallback:
             # telemetry reduces over the SANITISED density the controller
             # acted on (this step's held ρ), never raw NaN/Inf words
-            rho = state.rho_last
+            rho = lanes.rho_last
         if active is not None:
             return state, out, self._masked_step_telemetry(
-                rho, out, prev_events, state.events, active,
-                self._degraded_count(state, active))
+                rho, out, prev_events, lanes.events, active,
+                self._degraded_count(lanes, active))
         temp = out.temp_c.reshape(-1)
         sorted_t = torch.sort(temp).values
         rtok = rtok_from_rho(rho)                    # [n_packages, n_tiles]
-        events_total = state.events.sum(dtype=_I32)
+        events_total = lanes.events.sum(dtype=_I32)
         telem = FleetTelemetry(
-            n_packages=torch.full((), state.freq.shape[0], dtype=_I32,
+            n_packages=torch.full((), lanes.freq.shape[0], dtype=_I32,
                                   device=self.device),
             events_total=events_total,
             events_step=events_total - prev_events,
@@ -454,7 +513,7 @@ class FleetEngine:
             released_mtps=(rtok * out.freq).sum(),
             throttled_mtps=(rtok * (1.0 - out.freq)).sum(),
             at_risk_frac=out.at_risk.to(torch.float32).mean(),
-            degraded_count=self._degraded_count(state),
+            degraded_count=self._degraded_count(lanes),
         )
         return state, out, telem
 
@@ -654,14 +713,15 @@ class FleetEngine:
         if active is not None or self.backend_impl.run_block is not None:
             # whole-window traces path: advance the window (fused kernel
             # when the backend has one), then reduce telemetry from the
-            # streamed temp/freq traces
-            prev_events = (state.events.sum(dtype=_I32) if active is None
-                           else torch.where(active, state.events, 0
+            # streamed temp/freq traces (gathered from a mesh)
+            lanes0 = self.lanes(state)
+            prev_events = (lanes0.events.sum(dtype=_I32) if active is None
+                           else torch.where(active, lanes0.events, 0
                                             ).sum(dtype=_I32))
-            state0 = state
             state, temps, freqs = self.block_traces(state, rho_trace)
-            telems = self._telemetry_from_traces(rho_trace, temps, freqs,
-                                                 prev_events, state0, active)
+            telems = self._telemetry_from_traces(
+                self.gather(rho_trace), temps, freqs, prev_events, lanes0,
+                active)
         else:
             state, telems = self._run_impl(state, rho_trace)
         return state, telems.reduce()

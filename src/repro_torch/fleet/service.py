@@ -68,6 +68,17 @@ reference's service wrote.  A snapshot flush copies the state to the host
 as well (before its writer thread starts).  ``heartbeat_timeout_s`` arms a
 stalled-flush watchdog surfaced at GET /healthz.
 
+**On a device mesh** (``backend="sharded"`` / ``"sharded_fused"``, with
+``devices`` / ``device_pool`` as `FleetEngine` takes them) the state is
+partitioned over the mesh: an attach or a node row writes the owning
+partition in place (`distributed.sharding.lane_at`); grow and shrink —
+rare, O(capacity) anyway — run on the gathered state and re-place it on
+the mesh the backend resolves for the new capacity, the new lanes and the
+ctrl-mode plane partitioned like the state; a flush gathers the window's
+traces onto the engine's device for the reductions (still one copy to
+the host); a snapshot writes the gathered state and a restore re-places
+it.
+
 Threads: HTTP handler threads, the heartbeat watchdog and the snapshot
 writer touch the service's tensors only under its re-entrant lock (the
 writer only ever sees host copies).
@@ -95,6 +106,7 @@ from repro_torch.core.fingerprint import FINGERPRINT, Fingerprint
 from repro_torch.core.scheduler import SchedulerConfig, SchedulerState
 from repro_torch.core.telemetry import TelemetryLog
 from repro_torch.core.workload import KINDS, make_trace
+from repro_torch.distributed import sharding
 from repro_torch.fleet.alerts import (ALARM_KINDS, AlertEngine,
                                       TenantWindowStats, tenant_window_stats)
 from repro_torch.fleet.engine import FleetEngine, FleetTelemetry
@@ -128,11 +140,13 @@ def _tree_map(fn, tree, *rest):
 
 
 def _per_lane(a, cap: int) -> bool:
-    """A leaf with the capacity axis first.  The broadcast layouts' shared
-    clocks are 0-dim host tensors and are never touched by surgery (an
-    attached lane joins the running fleet's clock); vmap's per-lane clocks
-    are [capacity] and are (the lane restarts its own)."""
-    return torch.is_tensor(a) and a.ndim >= 1 and a.shape[0] == cap
+    """A leaf with the capacity axis first (whole or partitioned over a
+    mesh).  The broadcast layouts' shared clocks are 0-dim host tensors and
+    are never touched by surgery (an attached lane joins the running
+    fleet's clock); vmap's per-lane clocks are [capacity] and are (the lane
+    restarts its own)."""
+    return ((torch.is_tensor(a) or isinstance(a, sharding.Sharded))
+            and a.ndim >= 1 and a.shape[0] == cap)
 
 
 class FleetService:
@@ -153,9 +167,10 @@ class FleetService:
                  feed_capacity: int = 4,
                  snapshot_dir: str | None = None, snapshot_every: int = 0,
                  heartbeat_timeout_s: float = 0.0, debug_nan: bool = False,
-                 device=None):
+                 device=None, devices: int | None = None, device_pool=None):
         self.engine = FleetEngine(cfg, fp, backend=backend, device=device,
-                                  debug_nan=debug_nan)
+                                  debug_nan=debug_nan, devices=devices,
+                                  device_pool=device_pool)
         self.cfg, self.fp = self.engine.cfg, fp
         self.device = self.engine.device
         self.backend_name = backend
@@ -225,18 +240,37 @@ class FleetService:
     def _attach_op(state, template, lane: int):
         """The template's lane written into ``state`` IN PLACE (one small
         copy a leaf, not a copy of the state: attaching n packages costs
-        O(n), not O(n²)).  The service owns its state; the snapshot writer
-        only ever holds host copies."""
+        O(n), not O(n²)) — on a mesh into the partition that owns the
+        lane.  The service owns its state; the snapshot writer only ever
+        holds host copies."""
         cap = state.freq.shape[0]
 
         def scatter(a, b):
             if _per_lane(a, cap):
-                a[lane] = b[lane]
+                (pa, i), (pb, j) = (sharding.lane_at(a, lane),
+                                    sharding.lane_at(b, lane))
+                pa[i] = pb[j].to(pa.device)
             return a
         return _tree_map(scatter, state, template)
 
+    def _whole(self, op, state, *rest):
+        """``op`` on a whole state: a partitioned one is gathered first and
+        the result re-placed on the mesh the backend resolves for its
+        capacity."""
+        if not sharding.is_sharded(state):
+            return op(state, *rest)
+        eng = self.engine
+        return eng.backend_impl.place(
+            op(eng.gather(state), *map(eng.gather, rest)))
+
+    def _grow_op(self, state, template):
+        return self._whole(self._grow_whole, state, template)
+
+    def _shrink_op(self, state, perm: torch.Tensor):
+        return self._whole(self._shrink_whole, state, perm)
+
     @staticmethod
-    def _grow_op(state, template):
+    def _grow_whole(state, template):
         old = state.freq.shape[0]
 
         def grow(a, b):
@@ -250,14 +284,16 @@ class FleetService:
     @staticmethod
     def _node_op(state, row, lane: int):
         """Scatter one node bank's `PackageParams` row (batch 1) into the
-        heterogeneous per-lane draws at ``lane``."""
+        heterogeneous per-lane draws at ``lane`` (its partition's, on a
+        mesh)."""
         def put(a, b):
-            a[lane] = b[0]
+            pa, i = sharding.lane_at(a, lane)
+            pa[i] = b[0].to(pa.device)
             return a
         return state._replace(pkg=_tree_map(put, state.pkg, row))
 
     @staticmethod
-    def _shrink_op(state, perm: torch.Tensor):
+    def _shrink_whole(state, perm: torch.Tensor):
         old = state.freq.shape[0]
         return _tree_map(lambda a: a.index_select(0, perm)
                          if _per_lane(a, old) else a, state)
@@ -334,8 +370,11 @@ class FleetService:
         """Re-derive the ctrl_mode plane from the registry's profiles: a
         value upload into one state leaf."""
         if self.state.ctrl_mode is not None:
+            mask = self._put(self.registry.ctrl_mode_mask())
+            mesh = sharding.mesh_of(self.state)     # partitioned like it
             self.state = self.state._replace(
-                ctrl_mode=self._put(self.registry.ctrl_mode_mask()))
+                ctrl_mode=mask if mesh is None
+                else sharding.place(mask, mesh, 0))
 
     def canary(self, reactive_frac: float) -> dict:
         """Canary rollout: pin the first ``round(frac·n_active)`` packages
@@ -478,17 +517,19 @@ class FleetService:
         """Advance the window and reduce, on the device: the masked window
         telemetry, the per-tenant stats and the alarm levels, packed into
         ONE f64 vector (telemetry fields, stats [8, M], alarms [4, M]) so
-        that a single copy carries them to the host."""
-        ev0_lane = state.events
-        ev0 = torch.where(active, state.events, 0).sum(dtype=torch.int32)
-        state0 = state
+        that a single copy carries them to the host.  On a mesh the traces
+        and the per-lane leaves read here are gathered onto the engine's
+        device first."""
+        lanes0 = self.engine.lanes(state)
+        ev0 = torch.where(active, lanes0.events, 0).sum(dtype=torch.int32)
         state, temps, freqs = self.engine.block_traces(state, chunk)
+        lanes = self.engine.lanes(state)
         telem = self.engine.window_telemetry(
-            chunk, temps, freqs, ev0, state0, active).reduce()
+            chunk, temps, freqs, ev0, lanes0, active).reduce()
         stats, alarms = tenant_window_stats(
-            temps, freqs, ev0_lane, state.events, active, tenant_ids,
+            temps, freqs, lanes0.events, lanes.events, active, tenant_ids,
             self.registry.max_tenants, self.cfg.straggler_threshold,
-            self.fp.kappa_to_nm_per_c, thresholds, degraded=state.degraded)
+            self.fp.kappa_to_nm_per_c, thresholds, degraded=lanes.degraded)
         f64 = torch.float64
         packed = torch.cat([
             torch.stack([v.reshape(()).to(f64) for v in telem]),
@@ -703,8 +744,8 @@ class FleetService:
                             in self.alerts._latched.items() if v],
                 "warmed_max": self._warmed_max,
             }
-            self._ckpt.save(self.steps, self.state, blocking=blocking,
-                            extra=meta)
+            self._ckpt.save(self.steps, self.engine.gather(self.state),
+                            blocking=blocking, extra=meta)
             return self.steps
 
     def wait_snapshots(self) -> None:
@@ -716,7 +757,8 @@ class FleetService:
     @classmethod
     def restore(cls, snapshot_dir: str, *, sinks=(),
                 debug_nan: bool = False, heartbeat_timeout_s: float = 0.0,
-                fp: Fingerprint = FINGERPRINT, device=None) -> "FleetService":
+                fp: Fingerprint = FINGERPRINT, device=None,
+                device_pool=None) -> "FleetService":
         """Resume a killed service from its newest snapshot + journal.
 
         Rebuilds the service from the manifest (config, backend, registry
@@ -725,7 +767,10 @@ class FleetService:
         layout — re-runs `warmup` to the snapshot's horizon, then re-drives
         every journaled op recorded AFTER the snapshot, interleaved with
         re-synthesised flushes at the journal's flush cursors (the
-        per-package seeds make them identical to the lost originals)."""
+        per-package seeds make them identical to the lost originals).
+        ``device`` / ``device_pool`` place the restored service as the
+        constructor does (a mesh backend's state is written whole and
+        re-placed on the mesh resolved here)."""
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.fleet.registry import Tenant
         ckpt = CheckpointManager(snapshot_dir)
@@ -743,7 +788,7 @@ class FleetService:
                   backend=meta["backend"], sinks=sinks,
                   snapshot_dir=snapshot_dir, debug_nan=debug_nan,
                   heartbeat_timeout_s=heartbeat_timeout_s, device=device,
-                  **meta["service"])
+                  device_pool=device_pool, **meta["service"])
         r, reg = svc.registry, meta["registry"]
         r.capacity = int(reg["capacity"])
         r._lane_of = {p: int(l) for p, l in reg["lane_of"].items()}
@@ -776,7 +821,9 @@ class FleetService:
         svc._warmed_max = int(meta.get("warmed_max", 0))
         for name, kind in meta.get("latched", []):
             svc.alerts._latched[(name, kind)] = True
-        svc.state = ckpt.restore(step, template=svc.engine.init(r.capacity))
+        eng = svc.engine
+        svc.state = eng.backend_impl.place(ckpt.restore(
+            step, template=eng.gather(eng.init(r.capacity))))
         svc._refresh_ctrl()        # ctrl plane re-derived from profiles
         if svc._warmed_max:        # every warmed shape back before stepping
             svc.warmup(svc._warmed_max)

@@ -64,10 +64,19 @@ and SIGTERM → snapshot → `FleetService.restore` ≤1e-5-equivalent to an
 uninterrupted run with no kernel library built or loaded after the
 restore's warmup; it exits non-zero on any failed gate.
 
+``--fleet-backend sharded|sharded_fused`` places the fleet of
+``--stream``, ``--montecarlo`` and ``--serve`` (and the wave loop's) on a
+device mesh in this process: the package axis partitioned over
+``--fleet-devices`` cards (0: every visible one), one `fleet_step` launch
+per partition per window on ``sharded_fused``.  A budget the fleet size
+does not divide degrades loudly to the largest divisor (a RuntimeWarning);
+the ``[stream]`` / ``[fleet]`` lines log the backend's actual mesh after
+init.
+
 Not ported yet, exiting non-zero naming its ROADMAP step:
-``--distributed``.  ``--plant grid|rom`` streams through the per-step path
-of ``broadcast``; on ``fused`` ``rom`` rides the kernel's het rows and
-``grid`` is handed to the per-step path.
+``--distributed`` (the multi-process mesh).  ``--plant grid|rom`` streams
+through the per-step path of ``broadcast``; on ``fused`` ``rom`` rides the
+kernel's het rows and ``grid`` is handed to the per-step path.
 """
 from __future__ import annotations
 
@@ -89,7 +98,7 @@ from repro_torch.launch import steps as S
 from repro_torch.models import transformer as tf
 
 _NOT_PORTED = {
-    "distributed": ("--distributed (multi-host streaming)", 9),
+    "distributed": ("--distributed (multi-host streaming)", "9b"),
 }
 
 
@@ -112,7 +121,7 @@ def _montecarlo(args) -> dict:
     r = montecarlo.run(seed=args.seed, n_trials=args.montecarlo,
                        n_steps=args.mc_steps, backend=args.fleet_backend,
                        filtration_impl=args.filtration, plant=args.plant,
-                       device=dev)
+                       device=dev, devices=args.fleet_devices or None)
     s = r.stats()
     dt = time.perf_counter() - t0
     print(f"[mc] {args.montecarlo} trials x {args.mc_steps} steps "
@@ -139,7 +148,7 @@ def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
     """--stream: fleet control-plane soak through the streaming ingest loop."""
     n = max(args.fleet, 1)
     eng = FleetEngine(sched_cfg, backend=args.fleet_backend,
-                      device=args.device)
+                      device=args.device, devices=args.fleet_devices or None)
     steps = args.waves * args.gen
     t = np.linspace(0.0, np.pi, steps, dtype=np.float32)
     swell = rho * (0.85 + 0.3 * np.sin(t) ** 2)                # [T]
@@ -195,10 +204,11 @@ def _serve_resident(args, sched_cfg: SchedulerConfig) -> dict:
                        snapshot_dir=args.snapshot_dir or None,
                        snapshot_every=args.snapshot_every,
                        heartbeat_timeout_s=args.heartbeat_timeout,
-                       device=args.device)
+                       device=args.device, devices=args.fleet_devices or None)
     n0 = max(args.fleet, 0)      # 0: start empty, packages attach over HTTP
     buckets = svc.warmup(max_packages=max(2 * n0, 8))
-    print(f"[serve] warmed {buckets} capacity buckets on {svc.device} "
+    print(f"[serve] warmed {buckets} capacity buckets on {svc.device}, "
+          f"backend {svc.engine.backend_impl.describe()} "
           f"(no kernel library built or loaded from here)")
     for i in range(n0):
         svc.attach(f"pkg{i}", tenant="default", kind="inference",
@@ -259,6 +269,7 @@ def _chaos_soak(args) -> dict:
     import tempfile
 
     from repro_torch.distributed.fault_tolerance import PreemptionGuard
+    from repro_torch.distributed.sharding import gather
     from repro_torch.fleet import FaultPlan
     from repro_torch.fleet.faults import HintOutage, SensorFault
     from repro_torch.fleet.service import FleetService
@@ -273,7 +284,8 @@ def _chaos_soak(args) -> dict:
             failures.append(msg)
 
     def host(x) -> np.ndarray:
-        return x.detach().cpu().numpy()
+        """A leaf on the host (a mesh backend's partitions gathered)."""
+        return gather(x).detach().cpu().numpy()
 
     cfg = SchedulerConfig(n_tiles=2, mode="v24", filtration_window=16,
                           degraded_fallback=True, stale_limit_steps=4,
@@ -429,7 +441,8 @@ def _wave_loop(args, cfg, sched_cfg: SchedulerConfig, rho: float) -> dict:
     decode_fn = S.make_decode_step(cfg)
 
     n_pkgs = max(args.fleet, 1)
-    fleet = FleetEngine(sched_cfg, backend=args.fleet_backend, device=dev)
+    fleet = FleetEngine(sched_cfg, backend=args.fleet_backend, device=dev,
+                        devices=args.fleet_devices or None)
     fst = fleet.init(n_pkgs, pkg=_node_pkg(fleet, args.node, n_pkgs))
     if args.fleet > 1:
         print(f"[fleet] backend {fleet.backend_impl.describe()} "
@@ -518,6 +531,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fleet-backend", default="broadcast",
                     choices=available_backends(),
                     help="fleet execution strategy")
+    ap.add_argument("--fleet-devices", type=int, default=0,
+                    help="sharded/sharded_fused backend device budget "
+                         "(0 = all visible)")
     ap.add_argument("--filtration", default="incremental",
                     choices=["incremental", "ring"],
                     help="filtration fast path (O(1) sliding stats) or the "

@@ -7,8 +7,8 @@ step, as in the reference.  Tokens may be integer ids or a stub frontend's
 embeddings (train and prefill [B, S, D], decode [B, D]).
 
 The mesh and dry-run pieces of the reference (``train_state_specs``,
-``input_specs``, ``batch_shardings``) wait for the multi-GPU and XLA
-tooling steps (ROADMAP queue 1 steps 9 and 11).
+``input_specs``, ``batch_shardings``) wait for training on the mesh and
+the XLA tooling steps (ROADMAP queue 1 steps 9c and 11).
 """
 from __future__ import annotations
 

@@ -195,7 +195,7 @@ def test_engine_guards():
     with pytest.raises(ValueError, match="empty density trace"):
         e.run_survey(s, np.zeros((0, 4, 4), np.float32))
     with pytest.raises(ValueError, match="unknown fleet backend"):
-        TEngine(TCfg(), backend="sharded", device="cpu")
+        TEngine(TCfg(), backend="pmap", device="cpu")
 
 
 def test_fleet_engine_default_device_raises_without_cuda():

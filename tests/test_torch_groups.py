@@ -51,7 +51,8 @@ def _jcfg(**kw):
 
 # ------------------------------------------------------------ vmap backend
 def test_vmap_is_registered_beside_broadcast_and_fused():
-    assert available_backends() == BACKENDS[:1] + ["fused", "vmap"]
+    assert available_backends() == BACKENDS[:1] + [
+        "fused", "sharded", "sharded_fused", "vmap"]
 
 
 @pytest.mark.parametrize("kw", [

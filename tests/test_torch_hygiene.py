@@ -71,7 +71,9 @@ def test_port_has_every_module_of_the_slice():
                 "distributed/__init__.py",
                 "distributed/fault_tolerance.py", "optim/__init__.py",
                 "optim/adamw.py", "data/__init__.py", "data/pipeline.py",
-                "launch/train.py"):
+                "launch/train.py", "distributed/sharding.py",
+                "fleet/backends/sharded.py",
+                "fleet/backends/sharded_fused.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
                 "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu",
