@@ -129,7 +129,9 @@ Phase J  the resident fleet control plane (PR 18).  (a) `fma_f32.cu` against
          snapshot, and 2,049 detaches that shrink it back to 4,096: every
          flush one `fleet_step` launch and the synchronizing calls of ONE
          device→host copy (sync debug mode), held to a broadcast service
-         stepping the same chunk from the same state; `FleetService.restore`
+         stepping the same chunk from the same state, and bit-equal to a
+         second fused service ticked from the same state on the same chunk
+         (the per-tenant sums run in a fixed order); `FleetService.restore`
          vs the uninterrupted service ≤1e-5; no kernel library built or
          loaded after warmup; per-flush host ms by stage.  (c)
          `GroupedFleetEngine` (pole and ROM groups of 1,024 on the kernel,
@@ -272,11 +274,35 @@ Phase M  the fleet on a device mesh in one process (`sharded`,
          (per-trial statistics and the §10 lines equal), launches counted.
          (e) `FleetService` on the four partitions in Phase J's scenario
          (4,096 packages, four tenants, grow, canary, snapshot, restore),
-         each flush record held to a fused service fed the same chunks, one
+         each flush record equal to a fused service's fed the same chunks
+         (the per-tenant sums run in a fixed order), one
          device→host copy and one launch a partition a flush, the restored
          service bit-equal to the uninterrupted one, then the state moved
          from 4 partitions to 2 by `reshard_state` and two more flushes
          bit-equal.
+
+Phase N  the fleet across processes (`repro_torch.distributed.multihost`;
+         run after Phase M, from Phase B's, C's and M's results).  Two
+         ranks of one process group on the card over gloo (NCCL refuses
+         two ranks on one card), started by `multihost.run_process_group`:
+         Phase B's fleet and trace, rebuilt in each rank from the seed,
+         through `distributed_stream` on `sharded_fused` with each rank's
+         pool the card once (sharded_fused[2dev/2proc]) and twice
+         ([4dev/2proc]) — in every rank exactly 8 × its partitions
+         `fleet_step` launches, one record fetch, one collective and the
+         synchronizing calls of one device→host copy a flush; the records
+         the same on every rank and within the fleet gates of Phase B's
+         `fused` records (equality reported), the final state, assembled
+         from both ranks, within 1e-5 of Phase B's (bit-equality
+         reported); warm ms per flush per rank (the host clock between
+         records) beside Phase M's `fused`, the bytes the flush's
+         collective moves and that collective alone.
+         Then `serve --stream --fleet-backend sharded_fused --distributed`
+         on two ranks, each through `serve.main`'s argument parser with
+         --coordinator / --num-processes / --process-id: one launch and one
+         host sync a flush per rank, records the same on every rank and
+         within the gates of Phase C's, flush lines from rank 0 alone.  A
+         rank that fails ends the group and the script, non-zero.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -744,6 +770,8 @@ def main() -> None:
           f"{registers('fleet_step', 'ILi1ELb0E')}")
 
     mesh_entry = phase_m(dev, trace, flushed, state, res)
+    proc_entry = phase_n(dev, flushed, state, res,
+                         mesh_entry["ms_per_flush_mesh"]["fused"])
     mc_entry = phase_i(dev, compare)
     tc_entry = phase_d(dev)
     gc_entry = phase_e(dev)
@@ -770,6 +798,7 @@ def main() -> None:
         "library_ms": None,
         **mc_entry,
         **mesh_entry,
+        **proc_entry,
     }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2562,6 +2591,11 @@ def phase_j(dev) -> dict:
                        snapshot_dir=str(snap), log_capacity=8, device=dev)
     oracle = FleetService(cfg, backend="broadcast", flush_every=SVC_FLUSH,
                           log_capacity=8, device=dev)
+    # the same service again, ticked from the same state on the same chunk:
+    # its records must be the same bits (the per-tenant sums run in a fixed
+    # order, where index_add_'s float atomics reorder them run to run)
+    twin = FleetService(cfg, backend="fused", flush_every=SVC_FLUSH,
+                        log_capacity=8, device=dev)
     check(svc.device.type == dev.type, f"service on {svc.device}")
     t0 = time.perf_counter()
     buckets = svc.warmup(SVC_WARM)
@@ -2573,17 +2607,18 @@ def phase_j(dev) -> dict:
         _, k = count_syncs(lambda: svc.attach(
             f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4]))
         attach_syncs += k
-        oracle.attach(f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4])
+        for s_ in (oracle, twin):
+            s_.attach(f"pkg{i}", SVC_TENANTS[i % 4], KINDS[i % 4])
     torch.cuda.synchronize()
     attach_s = time.perf_counter() - t0
     _, per_copy = count_syncs(
         lambda: torch.ones(3, device=dev).cpu())
     check(per_copy >= 1, "sync debug mode saw no D2H copy")
     fs.fleet_step.launches = fma_f32.launches = 0
-    ticks, worst, svc_fma = [], 0.0, 0
+    ticks, worst, svc_fma, twin_launches = [], 0.0, 0, 0
 
     def tick(**kw):
-        nonlocal worst, svc_fma
+        nonlocal worst, svc_fma, twin_launches
         syncs0, launches0 = svc.host_syncs, fs.fleet_step.launches
         fma0, state0 = fma_f32.launches, svc.state
         rec, k = count_syncs(lambda: svc.tick(**kw))
@@ -2605,6 +2640,14 @@ def phase_j(dev) -> dict:
         want = oracle.tick(chunk=rec["rho"])
         worst = max(worst, records_close(rec, want,
                                          f"flush {rec['flush']}"))
+        twin.state = state0
+        l0 = fs.fleet_step.launches
+        again = twin.tick(chunk=rec["rho"])
+        twin_launches += fs.fleet_step.launches - l0
+        check(again["telemetry"] == rec["telemetry"]
+              and again["tenants"] == rec["tenants"],
+              f"flush {rec['flush']}: the same service run twice gives "
+              f"other bits")
         ticks.append(dict(svc.last_tick_ms))
         print(f"[phaseJ] flush {rec['flush']}: capacity {rec['capacity']}, "
               f"n {rec['telemetry']['n_packages']}, p99 "
@@ -2616,12 +2659,12 @@ def phase_j(dev) -> dict:
 
     tick()
     tick()
-    for s in (svc, oracle):                   # n + 1 packages: grow to 2n
+    for s in (svc, oracle, twin):          # n + 1 packages: grow to 2n
         plan = s.attach("extra", "acme", "training")["plan"]
         check(plan == "grow", f"attach past 4,096: plan {plan}")
     tick()
     feed = np.full((SVC_FLUSH, nt), 2.6, np.float32)
-    for s in (svc, oracle):
+    for s in (svc, oracle, twin):
         s.canary(0.25)
         s.set_thresholds("zeta", t_crit_c=60.0)
     check(svc.ingest("orion", feed)["accepted"], "ingest refused")
@@ -2632,7 +2675,7 @@ def phase_j(dev) -> dict:
     gone = ["extra"] + [f"pkg{i}" for i in range(n) if i % 4 >= 2]
     t0 = time.perf_counter()
     for name in gone:                          # n / 2 left: shrink to n
-        for s in (svc, oracle):
+        for s in (svc, oracle, twin):
             plan = s.detach(name)["plan"]
     check(plan == "shrink" and svc.registry.capacity == n,
           f"detach to {n // 2}: plan {plan}, capacity "
@@ -2640,10 +2683,10 @@ def phase_j(dev) -> dict:
     detach_s = time.perf_counter() - t0
     final = tick()
     torch.cuda.synchronize()
-    check(fs.fleet_step.launches == len(ticks),
-          f"{fs.fleet_step.launches} fleet_step launches in {len(ticks)} "
-          f"flushes")
-    svc_launches = {"fleet_step": fs.fleet_step.launches,
+    check(fs.fleet_step.launches - twin_launches == len(ticks),
+          f"{fs.fleet_step.launches - twin_launches} fleet_step launches in "
+          f"{len(ticks)} flushes")
+    svc_launches = {"fleet_step": fs.fleet_step.launches - twin_launches,
                     "fma_f32": svc_fma}
     t0 = time.perf_counter()
     restored = FleetService.restore(str(snap), device=dev)
@@ -2662,7 +2705,7 @@ def phase_j(dev) -> dict:
            for k in ticks[0]}
     print(f"[phaseJ] service {n} packages x {nt} tiles on fused, flush "
           f"{SVC_FLUSH}: warmup of {buckets} buckets {warm_s:.2f} s, "
-          f"{n} attaches (each on both services) {attach_s:.2f} s, the "
+          f"{n} attaches (each on the three services) {attach_s:.2f} s, the "
           f"fused service's with {attach_syncs} synchronizing calls, "
           f"{len(gone)} detaches "
           f"{detach_s:.2f} s; {len(ticks)} flushes, "
@@ -2670,7 +2713,8 @@ def phase_j(dev) -> dict:
           f"and {svc_launches['fma_f32']} fma_f32 launches, 1 D2H copy a "
           f"flush, each "
           f"record held to the broadcast service (worst rel "
-          f"{worst:.2e}); median host ms of the plain flushes "
+          f"{worst:.2e}) and bit-equal to the same service's run again "
+          f"from the same state; median host ms of the plain flushes "
           + json.dumps({k: round(v, 3) for k, v in med.items()})
           + f"; restore + 1 flush {restore_s:.2f} s, vs uninterrupted "
           f"{rel:.2e}; builds / loads after warmup: 0 / 0")
@@ -3961,6 +4005,12 @@ def phase_m(dev, trace, b_flushed, b_state, c_res) -> dict:
         e_worst = max(e_worst, records_close(rec, want,
                                              f"phase M (e) flush "
                                              f"{rec['flush']}"))
+        # the same per-lane traces and the per-tenant sums in a fixed
+        # order: the same bits
+        check(rec["telemetry"] == want["telemetry"]
+              and rec["tenants"] == want["tenants"],
+              f"phase M (e) flush {rec['flush']}: records differ from the "
+              f"fused service's")
         e_ticks.append(dict(svc.last_tick_ms))
         return rec
 
@@ -3998,7 +4048,7 @@ def phase_m(dev, trace, b_flushed, b_state, c_res) -> dict:
           f"x {SVC_TILES} tiles, four tenants, grow to "
           f"{svc.registry.capacity}, canary, snapshot, restore): "
           f"{len(e_ticks)} flushes, 1 D2H copy and one fleet_step launch a "
-          f"partition each, every record held to the fused service's "
+          f"partition each, every record equal to the fused service's "
           f"(worst rel {e_worst:.2e}), final state bit-equal; restore + "
           f"catch-up {restore_s:.2f} s, bit-equal; reshard_state "
           f"{before} -> {[p.shape[0] for p in svc.state.freq.parts]}, two "
@@ -4010,6 +4060,296 @@ def phase_m(dev, trace, b_flushed, b_state, c_res) -> dict:
             "launches_mesh_b": out["b"]["launches"],
             "ms_per_flush_mesh": ms, "run_block_ms_mesh": window_ms,
             "launch_ms_by_packages": launch_ms}
+
+
+# Phase N: the fleet across processes.  Two ranks of one process group on
+# the card, over gloo (NCCL refuses two ranks on one card), each rank's
+# pool the card once and then twice — sharded_fused[2dev/2proc] and
+# [4dev/2proc] — streaming Phase B's fleet, its trace rebuilt in each rank
+# from the seed; then `serve --distributed --stream` on two ranks
+PROC_RANKS = 2
+PROC_POOLS = (1, 2)
+PROC_SHAPE = (47, 4096, 2048, 256)      # tiles, packages, steps, flush
+
+PROC_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, %(root)r)
+from repro_torch.distributed import multihost
+topo = multihost.bootstrap_from_env()
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
+import chip_smoke as cs
+from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.fleet import FleetEngine, chunk_source, distributed_stream
+from repro_torch.fleet.engine import FleetTelemetry
+from repro_torch.kernels import fleet_step as fs
+
+dev = torch.device(%(device)r)
+if dev.type == "cpu":
+    # the CPU rehearsal: the plain version stands in for the kernel and
+    # counts its calls as the kernel's wrapper counts launches
+    from repro_torch.fleet.backends import fused as fused_mod
+    def plain(*a, rows=None, **k):
+        fs.fleet_step.launches += 1
+        return fs.fleet_step_reference(*a, **k)
+    fused_mod.fleet_step = plain
+COUNT = {"collectives": 0, "fetches": 0}
+def counting(fn, key):
+    def wrapped(*a, **k):
+        COUNT[key] += 1
+        return fn(*a, **k)
+    return wrapped
+for name in ("all_reduce", "all_gather", "all_gather_object", "broadcast",
+             "reduce_scatter", "all_to_all", "barrier", "reduce", "gather",
+             "scatter", "send", "recv"):
+    if hasattr(dist, name):
+        setattr(dist, name, counting(getattr(dist, name), "collectives"))
+FleetTelemetry.as_dict = counting(FleetTelemetry.as_dict, "fetches")
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+def syncs(fn):
+    if dev.type == "cpu":
+        return fn(), 1
+    return cs.count_syncs(fn)
+
+n_tiles, n, steps, flush = %(shape)r
+windows = steps // flush
+trace = cs.fleet_trace(n_tiles, n, steps)
+cfg = SchedulerConfig(n_tiles=n_tiles, mode="v24")
+_, per_copy = syncs(lambda: torch.ones(3, device=dev).cpu())
+out = {"rank": topo.process_id, "runs": []}
+for local in %(pools)r:
+    eng = FleetEngine(cfg, backend="sharded_fused", device=dev,
+                      device_pool=[dev] * local)
+    tag = eng.backend_impl.describe()
+    state0 = eng.init(n)
+    sync()
+    dist.barrier()
+    fs.fleet_step.launches = 0
+    c0, b0 = dict(COUNT), dict(multihost.COUNTS)
+    stamps = [time.perf_counter()]
+    state, flushed, stats = distributed_stream(
+        eng, state0, chunk_source(trace, flush), global_chunks=True,
+        on_flush=lambda i, d: stamps.append(time.perf_counter()))
+    sync()
+    launches = fs.fleet_step.launches
+    coll = COUNT["collectives"] - c0["collectives"]
+    fetches = COUNT["fetches"] - c0["fetches"]
+    nbytes = (multihost.COUNTS["bytes"] - b0["bytes"]) // windows
+    cs.check(launches == windows * local,
+             f"rank {topo.process_id} {tag}: {launches} fleet_step "
+             f"launches, want {windows} x {local}")
+    cs.check(stats.flushes == stats.host_syncs == fetches == windows,
+             f"rank {topo.process_id} {tag}: {stats.flushes} flushes, "
+             f"{stats.host_syncs} host syncs, {fetches} record fetches")
+    cs.check(coll == windows, f"rank {topo.process_id} {tag}: {coll} "
+             f"collectives in {windows} flushes")
+    # one warm flush: the synchronizing calls this rank's thread makes
+    st = eng.init(n)
+    chunk = eng.backend_impl.put_trace(trace[:flush])
+    eng.run_block(st, chunk)[1].as_dict()
+    _, k = syncs(lambda: eng.run_block(st, chunk)[1].as_dict())
+    cs.check(k == per_copy, f"rank {topo.process_id} {tag}: {k} "
+             f"synchronizing calls in a flush (one copy makes {per_copy})")
+    # warm ms per flush: the host clock between the stream's records,
+    # flushes 2 on (the first pays the kernel library's load)
+    flush_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    warm_ms = float(np.median(flush_ms[1:]))
+    # the collective alone at a flush's size, the ranks started together
+    buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    coll_ms = []
+    for _ in range(2):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        sync()
+        coll_ms.append((time.perf_counter() - t0) * 1e3)
+    del buf
+    whole = eng.assemble(state)
+    if topo.process_id == 0:
+        # copies: the assembled leaves are views of one collective buffer
+        torch.save(tree_map(lambda x: None if x is None
+                            else x.cpu().clone(), whole),
+                   %(out_dir)r + f"/state_{local}.pt")
+    out["runs"].append({"describe": tag, "flushed": flushed,
+                        "launches": launches, "collectives": coll,
+                        "fetches": fetches, "bytes_per_flush": nbytes,
+                        "warm_ms_per_flush": warm_ms, "flush_ms": flush_ms,
+                        "collective_ms": coll_ms})
+    del eng, state, state0, st, chunk, whole
+print("RESULT " + json.dumps(out))
+"""
+
+PROC_SERVE = r"""
+import json, os, sys
+sys.path.insert(0, %(root)r)
+from repro_torch.kernels import fleet_step as fs
+from repro_torch.launch import serve
+res = serve.main(%(argv)r + [
+    "--coordinator", os.environ["REPRO_COORDINATOR"],
+    "--num-processes", os.environ["REPRO_NUM_PROCESSES"],
+    "--process-id", os.environ["REPRO_PROCESS_ID"]])
+print("RESULT " + json.dumps({"stream": res["stream"],
+                              "host_syncs": res["host_syncs"],
+                              "launches": fs.fleet_step.launches}))
+"""
+
+
+def rank_results(outs: list) -> list:
+    """Each rank's RESULT object, in rank order."""
+    res = [json.loads(line[len("RESULT "):]) for o in outs
+           for line in o.splitlines() if line.startswith("RESULT ")]
+    check(len(res) == len(outs), "a rank printed no result:\n"
+          + "\n".join(outs))
+    return res
+
+
+def states_close(a, b, where: str) -> bool:
+    """Two whole fleet states: float leaves within 1e-5 (rtol = atol),
+    the others exact; returns whether every leaf is bit-equal."""
+    import torch
+
+    def leaves(x):
+        if x is None:
+            return []
+        if isinstance(x, tuple):
+            return [y for v in x for y in leaves(v)]
+        return [x]
+    la, lb = leaves(a), leaves(b)
+    check(len(la) == len(lb), f"{where}: {len(la)} vs {len(lb)} leaves")
+    same = True
+    for i, (x, y) in enumerate(zip(la, lb)):
+        x, y = x.cpu(), y.cpu()
+        if x.is_floating_point():
+            check(torch.allclose(x, y, **TOL), f"{where}: leaf {i} differs "
+                  f"by {float((x - y).abs().max()):.3e}")
+        else:
+            check(torch.equal(x, y), f"{where}: leaf {i} differs")
+        same = same and torch.equal(x, y)
+    return same
+
+
+def phase_n(dev, b_flushed, b_state, c_res, fused_ms: float) -> dict:
+    """The fleet across processes: Phase B's stream on two ranks of one
+    process group, each rank's pool the card once and twice, against Phase
+    B's `fused` records and state, launches, host syncs and collectives
+    counted in each rank; `serve --distributed --stream` on two ranks
+    against Phase C's records."""
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed import multihost
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "phase_n"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    windows = PROC_SHAPE[2] // PROC_SHAPE[3]
+    code = PROC_WORKER % {"root": str(ROOT), "device": dev.type,
+                          "shape": PROC_SHAPE, "pools": PROC_POOLS,
+                          "out_dir": str(out_dir)}
+    t0 = time.perf_counter()
+    ranks = rank_results(multihost.run_process_group(code, PROC_RANKS,
+                                                     timeout=900))
+    group_s = time.perf_counter() - t0
+    entry = {}
+    for i, local in enumerate(PROC_POOLS):
+        runs = [r["runs"][i] for r in ranks]
+        tag = runs[0]["describe"]
+        want = (f"sharded_fused[{PROC_RANKS * local}dev/{PROC_RANKS}proc,"
+                f"blk={32 if dev.type == 'cuda' else 'plain'}]")
+        check(tag == want, f"phase N: {tag}, want {want}")
+        for r in runs[1:]:
+            check(r["flushed"] == runs[0]["flushed"],
+                  f"phase N {tag}: rank {r} records differ from rank 0's")
+        flushed = runs[0]["flushed"]
+        worst = max(telemetry_gate(g, w, f"phase N {tag} flush {j}")
+                    for j, (g, w) in enumerate(zip(flushed, b_flushed)))
+        equal = flushed == b_flushed
+        state = torch.load(out_dir / f"state_{local}.pt", weights_only=False)
+        same = states_close(state, b_state, f"phase N {tag} final state")
+        entry[tag] = {
+            "launches": [r["launches"] for r in runs],
+            "warm_ms_per_flush": [r["warm_ms_per_flush"] for r in runs],
+            "flush_ms": [r["flush_ms"] for r in runs],
+            "collective_ms": [r["collective_ms"] for r in runs],
+            "bytes_per_flush": runs[0]["bytes_per_flush"]}
+        print(f"[phaseN] {tag}: Phase B's stream ({PROC_SHAPE[1]} x "
+              f"{PROC_SHAPE[0]}, {windows} flushes of {PROC_SHAPE[3]}) on "
+              f"{PROC_RANKS} ranks: fleet_step launches per rank "
+              f"{entry[tag]['launches']} ({windows} x {local}), 1 record "
+              f"fetch, 1 collective and the synchronizing calls of one D2H "
+              f"copy a flush on every rank; records the same on every "
+              f"rank and {'equal to' if equal else 'within the gates of'} "
+              f"Phase B's fused (worst rel {worst:.2e}); final state "
+              f"{'bit-equal to' if same else 'within 1e-5 of'} fused's; "
+              f"warm ms per flush per rank (median of flushes 2-"
+              f"{windows}, host clock between records) "
+              + json.dumps([round(x, 3) for x in
+                            entry[tag]["warm_ms_per_flush"]])
+              + f" beside fused's {fused_ms:.3f} (Phase M), each flush "
+              + json.dumps([[round(x, 1) for x in r]
+                            for r in entry[tag]["flush_ms"]])
+              + f"; the collective moves {entry[tag]['bytes_per_flush']} "
+              f"bytes a flush, alone (ms, 2 runs per rank) "
+              + json.dumps([[round(x, 3) for x in r] for r in
+                            entry[tag]["collective_ms"]]))
+
+    # ---- serve --distributed --stream through the CLI's entry, two ranks
+    argv = SERVE_STREAM_ARGV[:]
+    argv[argv.index("fused")] = "sharded_fused"
+    argv += ["--distributed"]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    waves = int(argv[argv.index("--waves") + 1])
+    t0 = time.perf_counter()
+    outs = multihost.run_process_group(
+        PROC_SERVE % {"root": str(ROOT), "argv": argv}, PROC_RANKS,
+        timeout=600)
+    serve_s = time.perf_counter() - t0
+    res = rank_results(outs)
+    for r in res:
+        check(r["host_syncs"] == waves and r["stream"] == res[0]["stream"],
+              f"serve --distributed: {r['host_syncs']} host syncs, or "
+              f"records that differ across ranks")
+        if dev.type == "cuda":
+            check(r["launches"] == waves, f"serve --distributed: "
+                  f"{r['launches']} fleet_step launches on a rank, want "
+                  f"{waves}")
+    for j, (g, w) in enumerate(zip(res[0]["stream"], c_res["stream"])):
+        telemetry_gate(g, w, f"phase N serve --distributed flush {j}")
+    check("[stream] flush" not in outs[1] and "[stream] flush" in outs[0],
+          "serve --distributed: flush lines not on rank 0 alone")
+    entry["serve"] = [r["launches"] for r in res]
+    same = res[0]["stream"] == c_res["stream"]
+    print(f"[phaseN] serve {' '.join(argv)} on {PROC_RANKS} ranks: "
+          f"{waves} flushes, fleet_step launches per rank "
+          f"{entry['serve']}, records the same on every rank and "
+          f"{'equal to' if same else 'within the gates of'} Phase C's "
+          f"one-process serve --stream; rank 0 alone prints "
+          f"them ({serve_s:.1f} s with start-up)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[phaseN] phase N {time.perf_counter() - t_phase:.1f} s (the "
+          f"streams' group {group_s:.1f} s with start-up)")
+    return {"launches_procs": {k: v["launches"] for k, v in entry.items()
+                               if k != "serve"},
+            "launches_procs_serve": entry["serve"],
+            "ms_per_flush_procs": {k: v["warm_ms_per_flush"]
+                                   for k, v in entry.items()
+                                   if k != "serve"},
+            "collective_bytes_per_flush": {
+                k: v["bytes_per_flush"] for k, v in entry.items()
+                if k != "serve"},
+            "collective_ms_procs": {k: v["collective_ms"]
+                                    for k, v in entry.items()
+                                    if k != "serve"}}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The fleet's device mesh in one process: the package axis over devices.
+"""The fleet's device mesh: the package axis over devices, in one process
+or across the ranks of a process group.
 
 Port of the fleet half of `repro.distributed.sharding` (`FLEET_AXIS`,
 `fleet_mesh`, `fleet_trace_spec`, `to_shardings`, `fleet_shard_map`).  The
@@ -27,6 +28,14 @@ The reference's tests emulate a many-device host with an XLA flag.  Here
 the same is one explicit argument: ``fleet_mesh(n, devices=...)`` with a
 pool whose entries repeat one device (``[torch.device("cpu")] * 4`` in the
 tests, ``[torch.device("cuda:0")] * 4`` on one card).
+
+Across processes (`repro_torch.distributed.multihost`) the mesh is a
+`ProcessMesh`: this rank's devices, plus the rank that owns each partition
+of the global mesh (the ranks' local meshes in rank order).  A leaf
+partitioned over it holds only this rank's partitions, but its ``shape``
+and ``spans()`` are global.  Nothing here crosses processes: `gather` of
+such a leaf refuses unless asked for this rank's lanes (``local=True``),
+and `multihost.assemble` gathers it from every rank in one collective.
 """
 from __future__ import annotations
 
@@ -90,6 +99,57 @@ def spans(n: int, parts: int) -> list[tuple[int, int]]:
     return [(i * size, (i + 1) * size) for i in range(parts)]
 
 
+class ProcessMesh(tuple):
+    """A mesh spanning the ranks of a process group: this rank's devices
+    (the tuple's entries, one per local partition), ``owners`` — the rank
+    owning each partition of the global mesh, in global order — and this
+    rank's ``rank``.  Its partitions are contiguous in the global mesh."""
+
+    def __new__(cls, devices, owners, rank: int):
+        self = super().__new__(cls, (as_device(d) for d in devices))
+        self.owners, self.rank = tuple(int(o) for o in owners), int(rank)
+        mine = [i for i, o in enumerate(self.owners) if o == self.rank]
+        if len(mine) != len(self) or (
+                mine and mine != list(range(mine[0], mine[-1] + 1))):
+            raise ValueError(f"rank {rank} owns partitions {mine} of the "
+                             f"global mesh {self.owners}, not its {len(self)}"
+                             f" devices in one contiguous run")
+        return self
+
+    @property
+    def size(self) -> int:
+        """Partitions of the global mesh."""
+        return len(self.owners)
+
+    @property
+    def first(self) -> int:
+        """The global index of this rank's first partition."""
+        return self.owners.index(self.rank)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, ProcessMesh) and tuple.__eq__(self, other)
+                and (self.owners, self.rank) == (other.owners, other.rank))
+
+    def __ne__(self, other) -> bool:
+        return not self == other
+
+    def __hash__(self) -> int:
+        return hash((tuple(self), self.owners, self.rank))
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh(rank {self.rank}: {[str(d) for d in self]}, "
+                f"owners={list(self.owners)})")
+
+
+def mesh_spans(n: int, mesh) -> list[tuple[int, int]]:
+    """The global package spans of ``mesh``'s own partitions, one per
+    device of ``mesh``: every span of a one-process mesh, this rank's of a
+    `ProcessMesh`."""
+    if isinstance(mesh, ProcessMesh):
+        return spans(n, mesh.size)[mesh.first:mesh.first + len(mesh)]
+    return spans(n, len(mesh))
+
+
 def on_device(device: torch.device):
     """Make ``device`` the current CUDA device inside the block (a no-op
     context for the CPU)."""
@@ -109,25 +169,31 @@ def to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 class Sharded:
     """A tensor partitioned over a fleet mesh along its package dimension
-    ``dim``: ``parts[i]`` holds packages ``spans[i]`` on ``mesh[i]``.
+    ``dim``: ``parts[i]`` holds packages ``spans()[i]`` on ``mesh[i]``.
+    Over a `ProcessMesh` (``mesh=``) the parts are this rank's partitions
+    of equal size, and ``shape`` and ``spans()`` are global.
 
     Only what the fleet's code paths read is offered: the global ``shape``
     and ``ndim``, and indexing/iteration over a leading axis that
     is not the package axis (a trace's time axis), which yields the
     partitioned step."""
 
-    __slots__ = ("parts", "dim")
+    __slots__ = ("parts", "dim", "pmesh")
 
-    def __init__(self, parts, dim: int):
+    def __init__(self, parts, dim: int, mesh=None):
         self.parts = tuple(parts)
         self.dim = int(dim)
+        self.pmesh = mesh if isinstance(mesh, ProcessMesh) else None
         if not self.parts:
             raise ValueError("Sharded needs at least one partition")
 
     @property
     def shape(self) -> torch.Size:
         s = list(self.parts[0].shape)
-        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        if self.pmesh is None:
+            s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        else:
+            s[self.dim] *= self.pmesh.size
         return torch.Size(s)
 
     @property
@@ -140,10 +206,15 @@ class Sharded:
 
     @property
     def mesh(self) -> tuple[torch.device, ...]:
+        if self.pmesh is not None:
+            return self.pmesh
         return tuple(p.device for p in self.parts)
 
     def spans(self) -> list[tuple[int, int]]:
-        out, lo = [], 0
+        """The global package span of each part."""
+        out = []
+        lo = (0 if self.pmesh is None
+              else self.pmesh.first * self.parts[0].shape[self.dim])
         for p in self.parts:
             out.append((lo, lo + p.shape[self.dim]))
             lo += p.shape[self.dim]
@@ -157,8 +228,8 @@ class Sharded:
             raise IndexError("Sharded: index the package axis through "
                              "lane_at, not []")
         if isinstance(k, slice):
-            return Sharded([p[k] for p in self.parts], self.dim)
-        return Sharded([p[k] for p in self.parts], self.dim - 1)
+            return Sharded([p[k] for p in self.parts], self.dim, self.pmesh)
+        return Sharded([p[k] for p in self.parts], self.dim - 1, self.pmesh)
 
     def __iter__(self):
         for k in range(len(self)):
@@ -220,12 +291,18 @@ def mesh_of(tree) -> tuple[torch.device, ...] | None:
 
 def _take(x: Sharded, lo: int, hi: int, device) -> torch.Tensor:
     """Packages [lo, hi) of ``x`` as one tensor on ``device``, from the
-    partitions that hold them (no gather of the rest)."""
-    pieces = []
+    partitions that hold them (no gather of the rest); lanes that another
+    rank holds raise."""
+    pieces, got = [], 0
     for p, (a, b) in zip(x.parts, x.spans()):
         s, e = max(a, lo), min(b, hi)
         if s < e:
             pieces.append(to_device(p.narrow(x.dim, s - a, e - s), device))
+            got += e - s
+    if got != hi - lo:
+        raise ValueError(f"packages [{lo}, {hi}) are not all on this rank "
+                         f"(it holds {x.spans()}): moving lanes between "
+                         f"processes is not supported")
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, x.dim)
 
 
@@ -233,8 +310,10 @@ def place(tree, mesh, specs):
     """``tree`` partitioned over ``mesh`` by its pspecs: a whole leaf is
     split into equal package spans, a partitioned one re-placed span by
     span (the counterpart of ``device_put`` under `to_shardings`); shared
-    leaves stay whole."""
-    mesh = tuple(mesh)
+    leaves stay whole.  Over a `ProcessMesh` a whole leaf is the global one
+    and this rank keeps its own spans."""
+    if not isinstance(mesh, ProcessMesh):
+        mesh = tuple(mesh)
 
     def leaf(x, dim):
         if dim is None:
@@ -245,7 +324,7 @@ def place(tree, mesh, specs):
         return Sharded([_take(x, lo, hi, dev) if isinstance(x, Sharded)
                         else to_device(x.narrow(dim, lo, hi - lo), dev)
                         for (lo, hi), dev in zip(
-                            spans(x.shape[dim], len(mesh)), mesh)], dim)
+                            mesh_spans(x.shape[dim], mesh), mesh)], dim, mesh)
     return _map(leaf, tree, specs)
 
 
@@ -266,12 +345,22 @@ def _cat(parts, dim: int) -> torch.Tensor:
     return whole.permute([order.index(k) for k in range(p0.ndim)])
 
 
-def gather(tree, device=None):
+def gather(tree, device=None, local: bool = False):
     """``tree`` with every partitioned leaf concatenated onto ``device``
-    (default: the mesh's first device); whole leaves pass through."""
+    (default: the mesh's first device); whole leaves pass through.
+
+    A leaf partitioned across processes is whole on no rank: it raises,
+    unless ``local`` asks for this rank's lanes (its parts concatenated).
+    `multihost.assemble` gathers it from every rank (a collective)."""
     def leaf(x, _):
         if not isinstance(x, Sharded):
             return x
+        if x.pmesh is not None and not local:
+            raise ValueError(
+                "gather: this leaf is partitioned across processes; "
+                "multihost.assemble gathers it from every rank (a "
+                "collective), gather(..., local=True) gives this rank's "
+                "lanes")
         dev = x.device if device is None else as_device(device)
         if len(x.parts) == 1:
             return to_device(x.parts[0], dev)
@@ -281,7 +370,8 @@ def gather(tree, device=None):
 
 def lane_at(x, lane: int) -> tuple[torch.Tensor, int]:
     """(the tensor holding package ``lane`` of ``x``, its index there): the
-    owning partition and the lane's local index, or ``x`` itself."""
+    owning partition and the lane's local index, or ``x`` itself.  A lane
+    another rank holds raises IndexError."""
     if not isinstance(x, Sharded):
         return x, lane
     if x.dim != 0:
@@ -289,7 +379,8 @@ def lane_at(x, lane: int) -> tuple[torch.Tensor, int]:
     for p, (lo, hi) in zip(x.parts, x.spans()):
         if lo <= lane < hi:
             return p, lane - lo
-    raise IndexError(f"lane {lane} outside [0, {x.shape[0]})")
+    raise IndexError(f"lane {lane} is not held here (spans {x.spans()} of "
+                     f"[0, {x.shape[0]}))")
 
 
 def _partition(tree, spec, i: int, mesh, n: int | None):
@@ -302,29 +393,29 @@ def _partition(tree, spec, i: int, mesh, n: int | None):
         if isinstance(x, Sharded):
             if x.mesh == mesh:
                 return x.parts[i]
-            lo, hi = spans(x.shape[x.dim], len(mesh))[i]
+            lo, hi = mesh_spans(x.shape[x.dim], mesh)[i]
             return _take(x, lo, hi, mesh[i])
         if dim is None or not torch.is_tensor(x):
             return x
         if n is not None and x.shape[dim] != n:
             raise ValueError(f"a whole leaf of {x.shape[dim]} packages "
                              f"beside a fleet of {n}")
-        lo, hi = spans(x.shape[dim], len(mesh))[i]
+        lo, hi = mesh_spans(x.shape[dim], mesh)[i]
         return to_device(x.narrow(dim, lo, hi - lo), mesh[i])
     return _map(leaf, tree, spec)
 
 
-def join(outs: list, spec):
+def join(outs: list, spec, mesh=None):
     """Per-partition outputs reassembled by ``spec``: a package leaf as a
-    `Sharded`, a shared leaf from partition 0 after checking that every
-    partition returned the same value where that costs no device read
-    (host tensors and numbers)."""
+    `Sharded` (over ``mesh`` when that is a `ProcessMesh`), a shared leaf
+    from partition 0 after checking that every partition returned the same
+    value where that costs no device read (host tensors and numbers)."""
     o0 = outs[0]
     if o0 is None:
         return None
     if isinstance(o0, tuple):
         specs = spec if isinstance(spec, tuple) else (spec,) * len(o0)
-        return _rebuild(o0, [join([o[k] for o in outs], s)
+        return _rebuild(o0, [join([o[k] for o in outs], s, mesh)
                              for k, s in enumerate(specs)])
     if spec is None:
         for o in outs[1:]:
@@ -334,7 +425,7 @@ def join(outs: list, spec):
                 raise RuntimeError(
                     f"a shared leaf differs across partitions: {o} vs {o0}")
         return o0
-    return Sharded(outs, spec)
+    return Sharded(outs, spec, mesh)
 
 
 def fleet_shard_map(f, mesh, in_specs, out_specs):
@@ -345,10 +436,12 @@ def fleet_shard_map(f, mesh, in_specs, out_specs):
     returns ``f``'s outputs reassembled by ``out_specs``.  ``mesh`` None
     returns ``f`` itself: a whole fleet on one device.  The partitions are
     launched one after the other with no host synchronisation between
-    them."""
+    them.  Over a `ProcessMesh` each rank maps its own partitions: no
+    operation crosses processes."""
     if mesh is None:
         return f
-    mesh = tuple(mesh)
+    if not isinstance(mesh, ProcessMesh):
+        mesh = tuple(mesh)
 
     def mapped(*args):
         n = next((x.shape[x.dim] for x in _leaves(args)
@@ -359,5 +452,5 @@ def fleet_shard_map(f, mesh, in_specs, out_specs):
                     for a, s in zip(args, in_specs)]
             with on_device(dev):
                 outs.append(f(*part))
-        return join(outs, out_specs)
+        return join(outs, out_specs, mesh)
     return mapped

@@ -5,8 +5,8 @@ per flush:
 
   * `tenant_window_stats` runs inside the control plane's flush
     (`repro_torch.fleet.service`), on the fleet's device: segment
-    reductions over the lane axis (``index_add_`` sums, ``scatter_reduce``
-    maxima and minima) collapse the [T, capacity, tiles] temperature /
+    reductions over the lane axis (`segment_sum`'s fixed-order sums,
+    ``scatter_reduce`` maxima and minima) collapse the [T, capacity, tiles] temperature /
     frequency traces of one flush window into dense ``[max_tenants]``
     per-tenant statistics, and compare them with the registry's threshold
     arrays to give alarm booleans — so evaluating every tenant's rules
@@ -48,8 +48,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["TenantWindowStats", "tenant_window_stats", "AlertEngine",
-           "LogSink", "JsonlSink", "WebhookSink", "ALARM_KINDS"]
+__all__ = ["TenantWindowStats", "tenant_window_stats", "segment_sum",
+           "AlertEngine", "LogSink", "JsonlSink", "WebhookSink",
+           "ALARM_KINDS"]
 
 ALARM_KINDS = ("t_crit", "at_risk", "cpo_drift", "degraded")
 
@@ -67,6 +68,24 @@ class TenantWindowStats(NamedTuple):
     events: torch.Tensor        # int32 — event counter delta over the window
     drift_nm: torch.Tensor      # worst per-tile CPO drift excursion [nm]
     degraded_lanes: torch.Tensor  # int32 — lanes on the reactive fallback
+
+
+def segment_sum(x: torch.Tensor, ids: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """``[n_segments]`` sums of ``x`` [lanes] by segment id (the
+    counterpart of ``jax.ops.segment_sum``: ids outside [0, n_segments),
+    such as the free lanes' dump segment, drop out).
+
+    Each segment's lanes are summed along a dense segment × lane mask, one
+    row reduction per segment, so the order of the additions is the same on
+    every run and every device — ``index_add_`` is float atomics on a
+    card, whose order, and so whose rounding, changes from run to run.  The
+    mask costs n_segments × lanes: tenants are few beside lanes.
+    """
+    seg = torch.arange(n_segments, device=x.device)
+    return torch.where(ids[None, :] == seg[:, None], x[None, :],
+                       torch.zeros((), dtype=x.dtype, device=x.device)
+                       ).sum(dim=1)
 
 
 def tenant_window_stats(temps: torch.Tensor, freqs: torch.Tensor,
@@ -97,8 +116,7 @@ def tenant_window_stats(temps: torch.Tensor, freqs: torch.Tensor,
     dev, f32 = temps.device, temps.dtype
 
     def seg_sum(x):
-        return torch.zeros(nseg, dtype=x.dtype, device=dev).index_add_(
-            0, ids, x)[:-1]
+        return segment_sum(x, ids, n_tenants)
 
     def seg_reduce(x, how, fill):
         return torch.full((nseg,), fill, dtype=x.dtype, device=dev

@@ -2,8 +2,8 @@
 
 Importing this package registers every backend of the reference:
 ``broadcast``, ``fused``, ``vmap`` and the device-mesh ones, ``sharded``
-and ``sharded_fused`` (in one process; their multi-process branches wait
-for ROADMAP queue 1 step 9b).
+and ``sharded_fused`` (in one process, or on a mesh spanning the ranks of
+a process group).
 """
 from repro_torch.fleet.backends.base import (FleetBackend, available_backends,
                                              backend_class, get_backend,

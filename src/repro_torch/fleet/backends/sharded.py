@@ -1,7 +1,7 @@
 """sharded backend — the package axis partitioned over a 1-D device mesh.
 
-Port of `repro.fleet.backends.sharded` in one process.  The fleet's package
-axis is embarrassingly parallel, so `update` runs the broadcast layout's
+Port of `repro.fleet.backends.sharded`.  The fleet's package axis is
+embarrassingly parallel, so `update` runs the broadcast layout's
 `ThermalScheduler.update` on each device's package partition, on that
 device, with no cross-partition operation inside a step; only the engine's
 telemetry reductions cross partitions, and they run on the traces gathered
@@ -21,11 +21,21 @@ actual mesh size.  A mesh never moves a partition to another device type.
 
 ``device_pool`` is the set of devices the mesh may take (default: every
 visible CUDA device; on an engine asked onto the CPU, that one CPU
-device).  Its entries may repeat one device: four partitions of one card.
+device; in a process group, the rank's device as many times as
+`multihost.initialize` was told).  Its entries may repeat one device: four
+partitions of one card.
 
-The reference's multi-process branches (a mesh spanning a
-``jax.distributed`` group, per-host ingest slabs) are not here: they wait
-for the multi-process step (ROADMAP queue 1 step 9b).
+In a process group (`repro_torch.distributed.multihost`) the mesh spans
+every rank's pool, the ranks' local meshes in rank order (a
+`ProcessMesh`), and the SAME backend runs on every rank, each stepping
+only its own partitions.  Degradation is then an error, not a warning — a
+shrunken mesh would leave some rank out of the group's collectives — so an
+indivisible fleet size, or a ``devices`` budget other than the global
+count, raises ValueError.  `put_trace` takes a second chunk shape there: a
+chunk whose package dim is this rank's lane span
+(`multihost.local_lane_range`) becomes its local partitions with no
+movement across processes (the per-rank ingest of
+`repro_torch.fleet.distributed_ingest`); a global chunk is cut to the span.
 """
 from __future__ import annotations
 
@@ -36,11 +46,13 @@ import torch
 
 from repro_torch.core.scheduler import (SchedulerOutput, SchedulerState,
                                         ThermalScheduler)
-from repro_torch.distributed.sharding import (FLEET_AXIS, Sharded, as_device,
-                                              fleet_mesh, fleet_shard_map,
+from repro_torch.distributed import multihost
+from repro_torch.distributed.sharding import (FLEET_AXIS, ProcessMesh,
+                                              Sharded, as_device, fleet_mesh,
+                                              fleet_shard_map,
                                               fleet_trace_spec, join,
-                                              mesh_of, on_device, place,
-                                              spans, to_device)
+                                              mesh_of, mesh_spans, on_device,
+                                              place, to_device)
 from repro_torch.fleet.backends.base import FleetBackend, register
 
 
@@ -54,8 +66,8 @@ class ShardedBackend(FleetBackend):
         super().__init__(sched)
         self._requested = devices
         home = as_device(sched.device)
-        if device_pool is None and home.type != "cuda":
-            device_pool = (home,)
+        if device_pool is None:
+            device_pool = multihost.local_device_pool(home)
         self._pool = fleet_mesh(None, device_pool)
         if any(d.type != home.type for d in self._pool):
             raise ValueError(
@@ -64,6 +76,16 @@ class ShardedBackend(FleetBackend):
                 f"the engine's {home} (a mesh never moves a partition to "
                 f"another device type)")
         self.mesh = fleet_mesh(devices, self._pool)
+        # the global fleet size, set when the mesh is resolved for it: a
+        # process-spanning put_trace tells a local slab from a global chunk
+        # by it
+        self.n_global = None
+        # every rank's pool size (one small collective, made here on every
+        # rank at the same point), and the global mesh over them
+        self._counts = None
+        if multihost.is_multiprocess():
+            self._counts = multihost.group_counts(len(self._pool))
+            self.mesh = multihost.process_mesh(self._pool, self._counts)
         self._scheds = {home: sched}
         self._state_specs = sched.state_pspecs(batch_axes=(FLEET_AXIS,))
         self._out_specs = sched.output_pspecs(batch_axes=(FLEET_AXIS,))
@@ -83,7 +105,26 @@ class ShardedBackend(FleetBackend):
         """Re-derive the mesh from the requested budget for this fleet size
         (on every init, so a divisible fleet after an indivisible one gets
         the full budget back); any downgrade warns with the requested and
-        actual counts and the cause."""
+        actual counts and the cause.
+
+        In a process group a downgrade is an error: every rank must run
+        the same program over the whole global mesh, and a mesh without
+        some rank's devices would leave it out of the collectives."""
+        self.n_global = n_packages
+        if self._counts is not None:
+            total = sum(self._counts)
+            if self._requested and self._requested != total:
+                raise ValueError(
+                    f"{self.name} fleet backend: devices={self._requested} "
+                    f"in a {len(self._counts)}-process group — the mesh must "
+                    f"span all {total} global devices (pass devices=None/0)")
+            if n_packages % total:
+                raise ValueError(
+                    f"{self.name} fleet backend: n_packages={n_packages} "
+                    f"must divide the {total} global devices in "
+                    f"multi-process mode (no silent mesh degradation "
+                    f"across processes)")
+            return
         visible = len(self._pool)
         requested = self._requested or visible
         clamped = len(fleet_mesh(self._requested, self._pool))
@@ -120,7 +161,7 @@ class ShardedBackend(FleetBackend):
         if per_package and not torch.is_tensor(fill):
             fill = torch.from_numpy(np.asarray(fill, np.float32))
         parts = []
-        for (lo, hi), dev in zip(spans(n_packages, len(self.mesh)),
+        for (lo, hi), dev in zip(mesh_spans(n_packages, self.mesh),
                                  self.mesh):
             cut = lambda x: to_device(x.narrow(0, lo, hi - lo), dev)
             with on_device(dev):
@@ -128,7 +169,7 @@ class ShardedBackend(FleetBackend):
                     batch_shape=(hi - lo,),
                     pkg=None if pkg is None else type(pkg)(*map(cut, pkg)),
                     filtration_fill=cut(fill) if per_package else fill))
-        return join(parts, self._state_specs)
+        return join(parts, self._state_specs, self.mesh)
 
     def place(self, state: SchedulerState) -> SchedulerState:
         """A whole (or differently partitioned) state on the mesh this
@@ -147,6 +188,10 @@ class ShardedBackend(FleetBackend):
         return fn(state, rho)
 
     # -- placement --------------------------------------------------------
+    def spans_processes(self) -> bool:
+        """True when the mesh holds the devices of more than one rank."""
+        return multihost.spans_processes(self.mesh)
+
     def _split(self, x: torch.Tensor, dim: int):
         """A whole tensor in the mesh's spans along ``dim``, each on its
         own device (a view where that is ``x``'s device); None when the
@@ -156,7 +201,7 @@ class ShardedBackend(FleetBackend):
             return None
         return Sharded([to_device(x.narrow(dim, lo, hi - lo), dev)
                         for (lo, hi), dev in zip(
-                            spans(x.shape[dim], len(self.mesh)), self.mesh)],
+                            mesh_spans(x.shape[dim], self.mesh), self.mesh)],
                        dim)
 
     def put_trace(self, trace):
@@ -166,26 +211,69 @@ class ShardedBackend(FleetBackend):
         asynchronous copy to the mesh's first device, as the single-device
         backends upload it, and each partition is taken from there: a view
         on that device, a device-to-device copy onto another (splitting on
-        the host would cost a strided host copy a partition a flush)."""
+        the host would cost a strided host copy a partition a flush).
+
+        On a process-spanning mesh the chunk is either global (its package
+        dim the global fleet size: this rank's span is cut from it) or this
+        rank's slab (its package dim the span's size), uploaded the same
+        way and split into this rank's partitions
+        (`multihost.assemble_local_slab`); any other size raises, and so
+        does a chunk before `init`, which fixes the global size."""
         if isinstance(trace, Sharded):
             return trace
+        if self.spans_processes():
+            return self._put_trace_group(trace)
         whole = super().put_trace(trace)
         pdim = fleet_trace_spec(whole.ndim, package_dim=max(whole.ndim - 2,
                                                              0))
         part = self._split(whole, pdim)
         return whole if part is None else part
 
+    def _put_trace_group(self, trace):
+        if self.n_global is None:
+            raise RuntimeError(f"{self.name}: init() must run before "
+                               f"put_trace on a multi-process mesh (the "
+                               f"global fleet size tells a local slab from "
+                               f"a global chunk)")
+        pdim = max(trace.ndim - 2, 0)
+        lo, hi = multihost.local_lane_range(self.n_global, self.mesh)
+        n_in = trace.shape[pdim]
+        if n_in == self.n_global:
+            trace = trace[(slice(None),) * pdim + (slice(lo, hi),)]
+        elif n_in != hi - lo:
+            raise ValueError(
+                f"{self.name}: chunk package dim {n_in} is neither the "
+                f"global fleet size {self.n_global} nor this process's "
+                f"local span {hi - lo} (lanes [{lo}, {hi}))")
+        slab = super().put_trace(trace)
+        gshape = (tuple(slab.shape[:pdim]) + (self.n_global,)
+                  + tuple(slab.shape[pdim + 1:]))
+        return multihost.assemble_local_slab(self.mesh, slab, gshape, pdim)
+
     def put_mask(self, mask):
         """An active-lane mask partitioned like the state's package axis;
         an indivisible capacity stays whole (replicated), as `put_trace`'s
-        fallback."""
+        fallback.  On a process-spanning mesh every rank passes the same
+        GLOBAL mask, kept whole: the flush's reductions read it whole."""
         whole = super().put_mask(mask)
+        if self.spans_processes():
+            return whole
         part = self._split(whole, 0)
         return whole if part is None else part
 
     # -- introspection ----------------------------------------------------
     def n_devices(self) -> int:
+        """Devices of the mesh: across every rank on a process-spanning
+        one."""
+        if isinstance(self.mesh, ProcessMesh):
+            return self.mesh.size
         return len(self.mesh)
 
+    def _mesh_tag(self) -> str:
+        if self.spans_processes():
+            return (f"{self.n_devices()}dev/"
+                    f"{len(set(self.mesh.owners))}proc")
+        return f"{self.n_devices()}dev"
+
     def describe(self) -> str:
-        return f"{self.name}[{self.n_devices()}dev]"
+        return f"{self.name}[{self._mesh_tag()}]"

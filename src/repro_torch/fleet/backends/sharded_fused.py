@@ -1,7 +1,7 @@
 """sharded_fused backend — the `fleet_step` kernel over a device mesh.
 
-Port of `repro.fleet.backends.sharded_fused` in one process.  It composes
-the two fleet fast paths:
+Port of `repro.fleet.backends.sharded_fused`.  It composes the two fleet
+fast paths:
 
   * `sharded` partitions the package axis over a 1-D device mesh (the
     state born partitioned, laid out by `ThermalScheduler.state_pspecs`);
@@ -16,6 +16,10 @@ other with no host synchronisation between them.  Each device has its own
 temperature and frequency traces come back partitioned; the engine gathers
 them onto the mesh's first device for the telemetry reductions, which stay
 one device→host copy a flush.
+
+On a mesh spanning processes each rank launches `fleet_step` once per
+window for each of its own partitions, and nothing more: the engine's one
+collective a flush assembles the traces.
 
 Per-step `update`, the mesh and its loud degradation, `put_trace` and
 `put_mask` are `ShardedBackend`'s.  A plant with no fused path (the grid)
@@ -83,5 +87,4 @@ class ShardedFusedBackend(ShardedBackend):
         return fn(state, rho_trace)
 
     def describe(self) -> str:
-        return (f"{self.name}[{self.n_devices()}dev,"
-                f"blk={self.block_packages}]")
+        return f"{self.name}[{self._mesh_tag()},blk={self.block_packages}]"

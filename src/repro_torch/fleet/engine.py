@@ -47,18 +47,33 @@ State contract:
     the whole active fleet, never per partition — run on the streamed
     traces gathered onto the engine's device, still one device→host copy a
     flush.  `gather` and `lanes` give whole views of a partitioned state.
+  * **Across processes.**  In a process group
+    (`repro_torch.distributed.multihost`) the mesh backends span every
+    rank; each rank's state holds only its own partitions, and `put_trace`
+    takes a global chunk or this rank's lane slab.  Every entry point is
+    then a collective program — all ranks make the same calls — and the
+    record is derived from a window's streamed traces on every path (the
+    kernel's, or a loop of `update` on ``sharded``), so each flush makes
+    ONE collective, never one a step: `multihost.gather_spans` assembles
+    the window's ρ, temperature and frequency planes of every rank in
+    global lane order and layout, beside each rank's event, degraded-lane
+    and prior-event counts, and every rank reduces them with the
+    one-device code — the percentiles over the whole active fleet — so the
+    record is the same on every rank, fetched with its one host sync, and
+    equal to the one-process engine's.
 
 `run_survey` is the §10 Monte-Carlo plane: per-(package, tile) peak
 temperature, exceedance and mean frequency, reduced on the device over
 ``chunk``-step blocks of the fused kernel (or per step on the broadcast
 backend); on a mesh its per-lane accumulators are partitioned like the
-state and the finished survey is gathered.  Fleets with per-package planes
-(heterogeneous draws, the degraded fallback, operator pins) report the
-fallback's lanes in ``degraded_count`` and count events per lane mode, as
-the kernel does.
+state (each rank's own across processes) and the finished survey is
+gathered (across processes, in one collective).  Fleets with per-package
+planes (heterogeneous draws, the degraded fallback, operator pins) report
+the fallback's lanes in ``degraded_count`` and count events per lane mode,
+as the kernel does.
 
-Not ported: a mesh spanning processes (ROADMAP queue 1 step 9b), and state
-donation (PyTorch allocates each window's outputs afresh).
+Not ported: state donation (PyTorch allocates each window's outputs
+afresh).
 """
 from __future__ import annotations
 
@@ -71,7 +86,7 @@ from repro_torch.core.density import rtok_from_rho
 from repro_torch.core.fingerprint import FINGERPRINT, Fingerprint
 from repro_torch.core.scheduler import (SchedulerConfig, SchedulerOutput,
                                         SchedulerState, ThermalScheduler)
-from repro_torch.distributed import sharding
+from repro_torch.distributed import multihost, sharding
 from repro_torch.fleet.backends import backend_class
 
 _I32 = torch.int32
@@ -215,7 +230,8 @@ class FleetEngine:
             SchedulerState, SchedulerOutput, FleetTelemetry]:
         """Advance the whole fleet one step.
 
-        rho: scalar, [n_packages], or [n_packages, n_tiles] density.
+        rho: scalar, [n_packages], or [n_packages, n_tiles] density.  On a
+        process-spanning mesh one step is a window of one (one collective).
         """
         state, out, telem = self._step_impl(
             state, self._rho_fleet(state, rho), self._active(state, active))
@@ -276,7 +292,10 @@ class FleetEngine:
         launch each) and reduces the streamed traces; the others reduce
         after every `update`.  On a mesh the accumulators are partitioned
         like the state, each reduced on its partition's device, and the
-        finished survey is gathered onto the engine's device.
+        finished survey is gathered onto the engine's device — across
+        processes each rank keeps its own lanes' accumulators (``rho_trace``
+        global or this rank's slab) and the survey is assembled once, in
+        one collective, whole on every rank.
         """
         self._check_trace(rho_trace)
         t = rho_trace.shape[0]
@@ -301,7 +320,7 @@ class FleetEngine:
         peak, exceed, fmean = sharding.fleet_shard_map(
             lambda p, e, f: (p, e / (t - burn_in), f / t), mesh, (0,) * 3,
             (0,) * 3)(*acc[:3])
-        return state, self.gather(FleetSurvey(
+        return state, self.assemble(FleetSurvey(
             peak_t_c=peak, exceed_frac=exceed, freq_mean=fmean,
             steps=torch.tensor(t, dtype=_I32),
             counted_steps=torch.tensor(t - burn_in, dtype=_I32)))
@@ -359,16 +378,17 @@ class FleetEngine:
         """(state', temps [T, n, tiles], freqs [T, n, tiles]) for one
         window — the backend's fused kernel when it has one, else a loop of
         `update` — the traces whole on the engine's device (gathered from a
-        mesh's partitions)."""
+        mesh's partitions; this rank's lanes on a process-spanning mesh:
+        no collective)."""
         if self.backend_impl.run_block is not None:
             state, temps, freqs = self.backend_impl.run_block(state,
                                                               rho_trace)
-            return state, self.gather(temps), self.gather(freqs)
+            return state, self._local(temps), self._local(freqs)
         temps, freqs = [], []
         for rho in rho_trace:
             state, out = self.backend_impl.update(state, rho)
-            temps.append(self.gather(out.temp_c))
-            freqs.append(self.gather(out.freq))
+            temps.append(self._local(out.temp_c))
+            freqs.append(self._local(out.freq))
         return state, torch.stack(temps), torch.stack(freqs)
 
     def window_telemetry(self, rho_trace, temps, freqs, prev_events,
@@ -383,17 +403,33 @@ class FleetEngine:
     def gather(self, tree):
         """``tree`` (a state, output, trace or mask) with every partition of
         a mesh backend concatenated onto the engine's device; whole trees
-        pass through unchanged."""
+        pass through unchanged.  A tree partitioned across processes
+        raises: `assemble` gathers it (a collective)."""
         return sharding.gather(tree, self.device)
+
+    def assemble(self, tree):
+        """``tree`` whole on the engine's device: `gather` in one process;
+        across processes every rank's partitions in ONE collective
+        (`multihost.assemble`), so every rank must call it at the same
+        point."""
+        if self._spans_processes():
+            return multihost.assemble(tree, self.device)
+        return self.gather(tree)
+
+    def _local(self, tree):
+        """`gather`, but this rank's lanes of a leaf partitioned across
+        processes."""
+        return sharding.gather(tree, self.device, local=True)
 
     def lanes(self, state: SchedulerState) -> SchedulerState:
         """The state's per-lane leaves whole on the engine's device — what
         the telemetry reductions read (events, latch, fallback and mode
         planes, draws, clocks) — with the ring and pole states left out
-        (None) on a mesh; a whole state is returned as it is."""
+        (None) on a mesh (this rank's lanes across processes); a whole
+        state is returned as it is."""
         if not sharding.is_sharded(state):
             return state
-        return self.gather(state._replace(thermal=None, filtration=None))
+        return self._local(state._replace(thermal=None, filtration=None))
 
     # ------------------------------------------------------------- internals
     @staticmethod
@@ -404,10 +440,12 @@ class FleetEngine:
             raise ValueError("empty density trace")
 
     def _debug_check_finite(self, state: SchedulerState, telem) -> None:
+        """``debug_nan``: the state (this rank's lanes across processes)
+        and the record, checked on the host."""
         if not self.debug_nan:
             return
         for name in ("freq", "thermal"):
-            a = self.gather(getattr(state, name))
+            a = self._local(getattr(state, name))
             bad = ~torch.isfinite(a)
             if bool(bad.any()):
                 lanes = torch.unique(torch.nonzero(bad)[:, 0]).tolist()
@@ -425,7 +463,7 @@ class FleetEngine:
             return None
         n = state.freq.shape[0]
         # placed like the state's package axis, then whole for the
-        # reductions, which cross lanes
+        # reductions, which cross lanes (whole already across processes)
         arr = self.gather(self.backend_impl.put_mask(active))
         if tuple(arr.shape) != (n,) or arr.dtype != torch.bool:
             raise ValueError(
@@ -480,12 +518,72 @@ class FleetEngine:
             degraded_count=degraded_count,
         )
 
+    def _spans_processes(self) -> bool:
+        """True when the backend's mesh spans processes (the same on every
+        rank, so branching on it keeps the program the same everywhere)."""
+        spans = getattr(self.backend_impl, "spans_processes", None)
+        return bool(spans and spans())
+
+    def _prev_events(self, lanes0: SchedulerState, active=None):
+        """Σ events over the (active) lanes at window entry, int32."""
+        if active is None:
+            return lanes0.events.sum(dtype=_I32)
+        return torch.where(active, lanes0.events, 0).sum(dtype=_I32)
+
+    def _assembled_record(self, rho, temps, freqs, lanes0: SchedulerState,
+                          active=None) -> FleetTelemetry:
+        """The [T]-leaved record of a window on a process-spanning mesh,
+        from this rank's [T, n_local, tiles] ρ, temperature and frequency
+        slabs and its lanes at window entry, in ONE collective.
+
+        Each rank replays its own lanes' event plane (events, degraded
+        lanes, the sanitised ρ); `multihost.gather_spans` then assembles
+        the three planes in global lane order, each in its slab's memory
+        layout, and every rank's integer counts as a row of its own; the
+        rows are summed in rank order and the whole window reduced by
+        `_traces_record`, as one device reduces it — the same record on
+        every rank.  ``active`` is the global mask."""
+        be = self.backend_impl
+        n = be.n_global
+        lo, hi = multihost.local_lane_range(n, be.mesh)
+        act = None if active is None else active[lo:hi]
+        ev_step, deg_count, rho = self._event_plane(rho, temps, lanes0, act)
+        t = temps.shape[0]
+        counts = torch.cat([ev_step, deg_count,
+                            self._prev_events(lanes0, act).reshape(1)])
+        world = len(set(be.mesh.owners))
+        rho, temps, freqs, counts = multihost.gather_spans(
+            [(rho, 1, lo, n), (temps, 1, lo, n), (freqs, 1, lo, n),
+             (counts[None], 0, be.mesh.rank, world)], self.device)
+        counts = counts.sum(0, dtype=_I32)
+        return self._traces_record(rho, temps, freqs, counts[2 * t],
+                                   counts[:t], counts[t:2 * t], active)
+
+    def _traces_window(self, state: SchedulerState, rho_trace, active=None):
+        """(state', the window's [T]-leaved record) from its streamed
+        temperature and frequency traces (the kernel's, or a loop of
+        `update`); across processes, one collective."""
+        lanes0 = self.lanes(state)
+        state, temps, freqs = self.block_traces(state, rho_trace)
+        rho = self._local(rho_trace)
+        if self._spans_processes():
+            return state, self._assembled_record(rho, temps, freqs, lanes0,
+                                                 active)
+        return state, self._telemetry_from_traces(
+            rho, temps, freqs, self._prev_events(lanes0, active), lanes0,
+            active)
+
     def _step_impl(self, state: SchedulerState, rho, active=None):
         lanes0 = self.lanes(state)
-        prev_events = (lanes0.events.sum(dtype=_I32) if active is None
-                       else torch.where(active, lanes0.events, 0
-                                        ).sum(dtype=_I32))
+        prev_events = self._prev_events(lanes0, active)
         state, out = self.backend_impl.update(state, rho)
+        if self._spans_processes():
+            lo, hi = multihost.local_lane_range(self.backend_impl.n_global,
+                                                self.backend_impl.mesh)
+            telem = self._assembled_record(
+                rho[None, lo:hi], self._local(out.temp_c)[None],
+                self._local(out.freq)[None], lanes0, active)
+            return state, out, FleetTelemetry(*(v[0] for v in telem))
         lanes, out, rho = self.lanes(state), self.gather(out), self.gather(rho)
         if self.cfg.degraded_fallback:
             # telemetry reduces over the SANITISED density the controller
@@ -519,6 +617,9 @@ class FleetEngine:
 
     def _run_impl(self, state: SchedulerState, rho_trace: torch.Tensor,
                   active=None):
+        if self._spans_processes():
+            # never a collective a step: the window's traces path
+            return self._traces_window(state, rho_trace, active)
         records = []
         for rho in rho_trace:
             state, _, telem = self._step_impl(state, rho, active)
@@ -710,18 +811,14 @@ class FleetEngine:
 
     def _run_block_impl(self, state: SchedulerState, rho_trace: torch.Tensor,
                         active=None):
-        if active is not None or self.backend_impl.run_block is not None:
+        if (active is not None or self.backend_impl.run_block is not None
+                or self._spans_processes()):
             # whole-window traces path: advance the window (fused kernel
             # when the backend has one), then reduce telemetry from the
-            # streamed temp/freq traces (gathered from a mesh)
-            lanes0 = self.lanes(state)
-            prev_events = (lanes0.events.sum(dtype=_I32) if active is None
-                           else torch.where(active, lanes0.events, 0
-                                            ).sum(dtype=_I32))
-            state, temps, freqs = self.block_traces(state, rho_trace)
-            telems = self._telemetry_from_traces(
-                self.gather(rho_trace), temps, freqs, prev_events, lanes0,
-                active)
+            # streamed temp/freq traces (gathered from a mesh).  A mesh
+            # spanning processes takes it even without a kernel: the
+            # per-step records would make a collective every step
+            state, telems = self._traces_window(state, rho_trace, active)
         else:
             state, telems = self._run_impl(state, rho_trace)
         return state, telems.reduce()

@@ -171,6 +171,12 @@ class FleetService:
         self.engine = FleetEngine(cfg, fp, backend=backend, device=device,
                                   debug_nan=debug_nan, devices=devices,
                                   device_pool=device_pool)
+        if self.engine._spans_processes():
+            # lane surgery and the per-tenant reductions read every lane
+            raise ValueError(
+                "FleetService runs on one process's devices; a mesh "
+                "spanning processes streams through "
+                "fleet.distributed_stream")
         self.cfg, self.fp = self.engine.cfg, fp
         self.device = self.engine.device
         self.backend_name = backend

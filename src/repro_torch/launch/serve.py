@@ -73,10 +73,20 @@ does not divide degrades loudly to the largest divisor (a RuntimeWarning);
 the ``[stream]`` / ``[fleet]`` lines log the backend's actual mesh after
 init.
 
-Not ported yet, exiting non-zero naming its ROADMAP step:
-``--distributed`` (the multi-process mesh).  ``--plant grid|rom`` streams
-through the per-step path of ``broadcast``; on ``fused`` ``rom`` rides the
-kernel's het rows and ``grid`` is handed to the per-step path.
+``--distributed`` makes this invocation ONE rank of a process group
+(`repro_torch.distributed.multihost`) running the ``--stream`` soak on a
+mesh backend: start one per rank with ``--coordinator`` (rank 0's
+host:port), ``--num-processes`` and ``--process-id``; ``--fleet`` is the
+GLOBAL fleet size.  The group is joined before anything else runs; every
+rank makes the same global trace from ``--seed``, cuts its own lane span
+and streams it (`fleet.distributed_stream`), one collective a flush; the
+records are the same on every rank, and rank 0 prints them.  A rank's mesh
+takes its visible cards (``--device cpu``: the host).  It needs
+``--stream`` and ``--fleet-backend sharded|sharded_fused``.
+
+``--plant grid|rom`` streams through the per-step path of ``broadcast``;
+on ``fused`` ``rom`` rides the kernel's het rows and ``grid`` is handed to
+the per-step path.
 """
 from __future__ import annotations
 
@@ -92,14 +102,11 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.density import rho_v24
 from repro_torch.core.plant import available_plants
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.distributed import multihost
 from repro_torch.fleet import (FleetEngine, available_backends, chunk_source,
-                               stream)
+                               distributed_stream, stream)
 from repro_torch.launch import steps as S
 from repro_torch.models import transformer as tf
-
-_NOT_PORTED = {
-    "distributed": ("--distributed (multi-host streaming)", "9b"),
-}
 
 
 def _node_pkg(eng, node: str, n: int):
@@ -145,7 +152,12 @@ def _montecarlo(args) -> dict:
 
 
 def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
-    """--stream: fleet control-plane soak through the streaming ingest loop."""
+    """--stream: fleet control-plane soak through the streaming ingest loop.
+
+    With ``--distributed`` this is ONE rank of a process group (`main`
+    joined it): the fleet size is global, every rank makes the whole trace
+    from the seed and streams its own lane span, and the records, the same
+    on every rank, are printed by rank 0 alone."""
     n = max(args.fleet, 1)
     eng = FleetEngine(sched_cfg, backend=args.fleet_backend,
                       device=args.device, devices=args.fleet_devices or None)
@@ -157,23 +169,36 @@ def _stream_soak(args, sched_cfg: SchedulerConfig, rho: float) -> dict:
     trace = np.clip(swell[:, None, None] + jitter.numpy(), 0.9, 2.7
                     ).astype(np.float32)                       # [T, n, tiles]
 
+    topo = multihost.topology()
+    rank0 = topo.process_id == 0
+
     def on_flush(i, d):
-        print(f"[stream] flush {i}: p50 {d['temp_p50_c']:.1f}C "
-              f"p99 {d['temp_p99_c']:.1f}C f_mean {d['freq_mean']:.3f} "
-              f"released {d['released_mtps']:.1f} MTPS "
-              f"events {int(d['events_total'])}")
+        if rank0:
+            print(f"[stream] flush {i}: p50 {d['temp_p50_c']:.1f}C "
+                  f"p99 {d['temp_p99_c']:.1f}C f_mean {d['freq_mean']:.3f} "
+                  f"released {d['released_mtps']:.1f} MTPS "
+                  f"events {int(d['events_total'])}")
 
     state = eng.init(n, pkg=_node_pkg(eng, args.node, n))
-    print(f"[stream] backend {eng.backend_impl.describe()} on {eng.device} "
+    # the mesh is resolved at init: the line names the ACTUAL devices
+    tag = (f"[stream p{topo.process_id}/{topo.num_processes}]"
+           if args.distributed else "[stream]")
+    print(f"{tag} backend {eng.backend_impl.describe()} on {eng.device} "
           f"({eng.backend_impl.n_devices()} device(s)), fleet {n}")
     t0 = time.perf_counter()
-    state, flushed, stats = stream(eng, state, chunk_source(trace, args.gen),
-                                   on_flush=on_flush)
+    if args.distributed:
+        state, flushed, stats = distributed_stream(
+            eng, state, chunk_source(trace, args.gen), global_chunks=True,
+            on_flush=on_flush)
+    else:
+        state, flushed, stats = stream(eng, state,
+                                       chunk_source(trace, args.gen),
+                                       on_flush=on_flush)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
     rate = stats.steps * n / max(dt, 1e-9)
-    print(f"[stream] done: {stats.steps} steps x {n} pkgs "
+    print(f"{tag} done: {stats.steps} steps x {n} pkgs "
           f"({eng.backend_impl.describe()}) in {dt*1e3:.0f} ms "
           f"({rate:.0f} pkg-steps/s), {stats.host_syncs} host syncs / "
           f"{stats.flushes} flushes (contract: 1/flush)")
@@ -548,7 +573,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--stream", action="store_true",
                     help="streaming control-plane soak (async ingest, 1 "
                          "host sync per gen-step flush)")
-    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a process group: this invocation is ONE rank "
+                         "of a --stream soak on a mesh backend (start one "
+                         "per rank with --process-id 0..N-1; --fleet is "
+                         "the GLOBAL fleet size)")
+    ap.add_argument("--coordinator", default="127.0.0.1:8476",
+                    help="--distributed: rank 0's host:port")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="--distributed: the group's process count")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="--distributed: this process's rank")
     ap.add_argument("--serve", action="store_true",
                     help="resident control plane: FleetService + HTTP "
                          "operator API instead of the wave loop "
@@ -585,7 +620,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="steps per Monte-Carlo trial, past the 400-step "
                          "burn-in (>= 3000 reproduces the paper's §10 "
                          "distributions)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.distributed:
+        if not args.stream:
+            ap.error("--distributed requires --stream (the multi-process "
+                     "path is the streaming fleet soak)")
+        if args.fleet_backend not in ("sharded", "sharded_fused"):
+            ap.error(f"--distributed needs a device-mesh backend "
+                     f"(sharded/sharded_fused), got --fleet-backend "
+                     f"{args.fleet_backend}")
+    return args
 
 
 def wave_setup(args) -> tuple:
@@ -605,10 +649,11 @@ def wave_setup(args) -> tuple:
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, (what, step) in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"repro_torch.launch.serve: {what} is not "
-                             f"ported yet: ROADMAP queue 1 step {step}")
+    if args.distributed:
+        # the group first: every engine built later sees its global mesh
+        topo = multihost.initialize(args.coordinator, args.num_processes,
+                                    args.process_id)
+        print(f"[distributed] {topo.describe()}", flush=True)
     if args.chaos:
         return _chaos_soak(args)
     if args.montecarlo:

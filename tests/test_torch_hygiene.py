@@ -37,6 +37,7 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "scripts" / "ssd_train_limits.py",
     ROOT / "scripts" / "flash_variants.py",
     ROOT / "scripts" / "ssd_bwd_code_size.py",
+    ROOT / "scripts" / "collective_probe.py",
     ROOT / "examples" / "torch_broadcast_step.py",
     ROOT / "examples" / "torch_train_100m.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

@@ -198,6 +198,51 @@ def test_tenant_window_stats_match_reference():
                                       err_msg=k)
 
 
+@pytest.mark.parametrize("lanes,tenants", [(64, 3), (4096, 8)])
+def test_segment_sum_is_fixed_order_and_matches_jax(lanes, tenants,
+                                                    monkeypatch):
+    """The per-tenant sums (`alerts.segment_sum`): within 1e-5 of
+    ``jax.ops.segment_sum`` with empty tenants and free lanes (the dump
+    segment) dropped, on values whose f32 sum changes with the order of
+    the additions — as ``index_add_``'s float atomics reorder them from
+    run to run on a card — the same bits on every call, and no
+    ``index_add_`` anywhere in `tenant_window_stats`."""
+    import jax
+
+    from repro_torch.fleet.alerts import segment_sum
+
+    rng = np.random.default_rng(lanes)
+    x = (rng.choice([-1.0, 1.0], lanes) * 10.0 ** rng.uniform(
+        -3, 3, lanes)).astype(np.float32)
+    ids = rng.integers(0, tenants, lanes).astype(np.int32)
+    ids[ids == 1] = 0                       # tenant 1 has no lanes
+    ids[rng.uniform(size=lanes) < 0.2] = tenants          # free lanes
+    seg0 = x[ids == 0]
+    assert np.cumsum(seg0)[-1] != np.cumsum(seg0[::-1])[-1], \
+        "the case must be one whose f32 sum depends on the order"
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(x), jnp.asarray(ids),
+                                          tenants + 1))[:-1]
+
+    def boom(*a, **k):
+        raise AssertionError("index_add_ (float atomics on a card)")
+    monkeypatch.setattr(torch.Tensor, "index_add_", boom)
+    got = segment_sum(torch.from_numpy(x), torch.from_numpy(ids).long(),
+                      tenants)
+    assert got[1] == 0.0
+    np.testing.assert_allclose(np_(got), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, segment_sum(torch.from_numpy(x),
+                                        torch.from_numpy(ids).long(),
+                                        tenants))
+    t = torch.from_numpy(rng.uniform(40, 100, (4, lanes, 2)).astype(
+        np.float32))
+    th = {k: torch.full((tenants,), np.inf) for k in (
+        "t_crit_c", "at_risk_limit", "drift_budget_nm", "degraded_limit")}
+    ev = torch.zeros(lanes, dtype=torch.int32)
+    tenant_window_stats(t, t / 100, ev, ev + 1,
+                        torch.from_numpy(ids < tenants),
+                        torch.from_numpy(ids), tenants, 0.9, 0.042, th)
+
+
 # --------------------------------------------------------------- membership
 def test_attach_across_growth_matches_fixed_capacity_fleet():
     """Attach → tick → attach past the bucket boundary → tick reproduces a
