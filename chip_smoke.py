@@ -313,11 +313,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the
@@ -781,6 +783,7 @@ def main() -> None:
     phase_k(dev, fa_entry, ssd_entry)
     fma_entry = phase_j(dev)
     fb_entries = phase_l(dev)
+    mesh_entries = phase_o(dev, GEMMA_LOSS)
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -799,7 +802,8 @@ def main() -> None:
         **mc_entry,
         **mesh_entry,
         **proc_entry,
-    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries]}))
+    }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries,
+        *mesh_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2867,6 +2871,9 @@ FLASH_BWD_TIMED = {"Gemma-2B training": "gemma", "Zamba2-7B": "zamba2",
 # table)
 FLASH_BWD_CUDA_CORE_MS = 12.130
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# the forward's output against its plain version (Phase G's bounds, the
+# reference's tests/test_kernels.py)
+FLASH_FWD_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TRAIN_BF16_TOL = 5e-2
 # At full depth in bf16 the ssd families' gradients move with rounding
 # alone: the plain path against itself at ssd chunk 32 (the same sums in
@@ -2878,6 +2885,7 @@ TRAIN_BF16_TOL = 5e-2
 # within SSD_F32_DEPTH_TOL of each leaf's largest magnitude
 SSD_F32_DEPTH_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-3
+GEMMA_LOSS = None      # Phase L (b)'s one-device Gemma-2B loss, for Phase O
 TRAIN_F32_TOL = 1e-4
 TRAIN_ARGV = ["--arch", "gemma-2b", "--batch", "8", "--seq", "1024",
               "--log-every", "1"]
@@ -3272,8 +3280,10 @@ def phase_l(dev) -> list:
     cfg = get_arch("gemma-2b")
     toks, labs = train_batch(dev, cfg, 21)
     params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    grads_vs_plain(params, cfg, toks, labs, "Gemma-2B bf16 [8 x 1,024] "
-                   "full width and depth", TRAIN_BF16_TOL, "tensor_core")
+    global GEMMA_LOSS
+    GEMMA_LOSS, _ = grads_vs_plain(
+        params, cfg, toks, labs, "Gemma-2B bf16 [8 x 1,024] full width and "
+        "depth", TRAIN_BF16_TOL, "tensor_core")
     del params
     torch.cuda.empty_cache()
 
@@ -4350,6 +4360,757 @@ def phase_n(dev, b_flushed, b_state, c_res, fused_ms: float) -> dict:
             "collective_ms_procs": {k: v["collective_ms"]
                                     for k, v in entry.items()
                                     if k != "serve"}}
+
+
+
+# Phase O (step 9c): training on a (pod, data, model) mesh, gloo ranks on
+# the card (NCCL refuses two ranks on one device).  (a) Gemma-2B at full
+# width and depth on (data 1, model 2): tensor parallelism, half of every
+# weight, moment and the vocabulary a rank
+MESH_TP = (1, 2)
+MESH_WARM_STEPS = 3
+MESH_TILES = 8
+# (b) the reduced families on a 4-rank (data 2, model 2) mesh, f32: (arch,
+# widths, tp_attention, batch, seq); mixtral in the EP-only mode (its 4
+# experts over "model", the rest FSDP over "data")
+MESH_SMALL = (2, 2)
+MESH_SMALL_CASES = (
+    ("granite-3-2b", dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                          head_dim=16, d_ff=128, vocab_size=256), True, 4,
+     64),
+    ("rwkv6-1.6b", dict(n_layers=2, vocab_size=256), True, 4, 64),
+    ("mixtral-8x7b", dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                          head_dim=16, d_ff=128, n_experts=4, top_k=2,
+                          moe_d_ff=64, vocab_size=256, window=32), False, 4,
+     64))
+
+
+def mesh_small_config(arch: str):
+    """A (b) case's reduced configuration."""
+    from repro_torch.configs import get_arch, reduced
+    return reduced(get_arch(arch),
+                   **next(c for c in MESH_SMALL_CASES if c[0] == arch)[1])
+
+
+def mesh_small_launches(arch: str) -> dict:
+    """The launches of one (b) case on each rank: `train_launches` twice
+    (the gradient alone, then a train step), flash on its f32 route."""
+    n = {k: 2 * v for k, v in train_launches(mesh_small_config(arch)).items()}
+    return {"flash": {"tensor_core": 0, "cuda_core": n["flash"]},
+            "flash_bwd": {"tensor_core": 0, "cuda_core": n["flash_bwd"]},
+            "ssd": n["ssd"], "ssd_bwd": n["ssd_bwd"]}
+
+
+# (c) the error-feedback all-reduce: the reference test's [64, 32]
+# gradient, and a model-sized one for its time and bytes
+MESH_COMPRESS = ((64, 32), (2048, 2048))
+
+MESH_COMMON = r"""
+import json, sys, time, contextlib, collections, functools
+sys.path.insert(0, %(root)r)
+from repro_torch.distributed import multihost
+multihost.bootstrap_from_env()
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor.debug import CommDebugMode
+import chip_smoke as cs
+from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
+from repro_torch.configs import get_arch, reduced
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssm_scan as sm
+from repro_torch.launch import mesh as M
+from repro_torch.launch import steps as S
+from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw_init
+
+dev = torch.device(%(device)r)
+rank = dist.get_rank()
+SHAPES = collections.Counter()      # the local shapes each kernel saw
+
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# the kernel wrappers the mesh's local routes reach, and their plain
+# versions on the same arguments (the forwards' outputs as the kernels
+# return them)
+WRAPPERS = {"flash": fa.flash_attention_stats,
+           "flash_bwd": fa.flash_attention_backward,
+           "ssd": sm.ssd_states, "ssd_bwd": sm.ssd_backward}
+
+
+def plain(key, a, k):
+    if key == "flash":
+        o, m, l = fa.flash_attention_stats_reference(*a, **k)
+        return o.to(a[0].dtype), o, m, l
+    if key == "flash_bwd":
+        return fa.flash_attention_backward_reference(*a, **k)
+    if key == "ssd":
+        return sm.ssd_reference(*a, states=True, **k)
+    return sm.ssd_backward_reference(*a, **k)
+
+
+CAPTURE = [False]
+CAPTURED = {}       # (kernel, local shape): the inputs it first met there
+
+
+def seen(fn, key):
+    # the wrapper takes the kernel wrapper's place and its launch counts
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        at = (key, str(list(a[0].shape)) + " " + str(list(a[1].shape)[2:3])
+              + " " + str(a[0].dtype).split(".")[-1])
+        SHAPES[at] += 1
+        if CAPTURE[0] and at not in CAPTURED:
+            CAPTURED[at] = ([x.detach().clone() if torch.is_tensor(x) else x
+                             for x in a], dict(k))
+        return fn(*a, **k)
+    return wrapped
+
+
+fa.flash_attention_stats = seen(WRAPPERS["flash"], "flash")
+fa.flash_attention_backward = seen(WRAPPERS["flash_bwd"], "flash_bwd")
+sm.ssd_states = seen(WRAPPERS["ssd"], "ssd")
+sm.ssd_backward = seen(WRAPPERS["ssd_bwd"], "ssd_bwd")
+
+
+def hold_captured():
+    # each kernel launched again on the inputs it first met at each local
+    # shape of the mesh's run, beside its plain version: {kernel and
+    # shape: per output [max |kernel - plain|, max |plain|, dtype,
+    # finite]}; the launch counts are read before (these are not the
+    # mesh's)
+    out = {}
+    for (key, at), (a, k) in CAPTURED.items():
+        got, want = WRAPPERS[key](*a, **k), plain(key, a, k)
+        out[f"{key} {at}"] = [None if w is None else [
+            float((g.float() - w.float()).abs().max()),
+            float(w.float().abs().max()), str(w.dtype).split(".")[-1],
+            bool(torch.isfinite(g).all())] for g, w in zip(got, want)]
+    CAPTURED.clear()
+    return out
+
+
+# every collective the ranks issue, counted where DTensor and the port
+# call them (`torch.distributed._functional_collectives`, and
+# `torch.distributed.all_reduce` in the LM head's cross entropy): count,
+# bytes handed to it (its local input), and the local shape of every
+# all-gather; the outermost call only, where one calls another
+import torch.distributed._functional_collectives as funcol
+KINDS = collections.defaultdict(lambda: [0, 0])
+GATHERS = []
+RECORD = [False, 0]
+
+
+def counted(kind, fn):
+    @functools.wraps(fn)
+    def wrapped(t, *a, **k):
+        if RECORD[0] and RECORD[1] == 0:
+            KINDS[kind][0] += 1
+            KINDS[kind][1] += t.numel() * t.element_size()
+            if kind == "all_gather":
+                GATHERS.append(list(t.shape))
+        RECORD[1] += 1
+        try:
+            return fn(t, *a, **k)
+        finally:
+            RECORD[1] -= 1
+    return wrapped
+
+
+for attr in dir(funcol):
+    for kind in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"):
+        if (attr.startswith(kind) and "coalesced" not in attr
+                and callable(getattr(funcol, attr))):
+            setattr(funcol, attr, counted(kind, getattr(funcol, attr)))
+dist.all_reduce = counted("all_reduce", dist.all_reduce)
+
+
+def launches():
+    return {"flash": dict(fa.flash_attention.launches_by_route),
+            "flash_bwd": dict(fa.flash_attention_backward.launches_by_route),
+            "ssd": sm.ssd.launches, "ssd_bwd": sm.ssd_backward.launches}
+
+
+def reset():
+    fa.reset_launches()
+    sm.ssd.launches = sm.ssd_backward.launches = 0
+    SHAPES.clear()
+
+
+def worst_leaf(got, want):
+    w = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        w = max(w, float((a - b).abs().max())
+                / max(float(b.abs().max()), 1e-30))
+    return w
+
+
+def local_of(grads, params, mesh, specs):
+    # each rank's shard of one-device gradients, placed as the parameters
+    return [g.to_local() for g in tree_leaves(shd.distribute(
+        tree_unflatten(params, list(grads)), mesh, specs))]
+"""
+
+MESH_WORKER_TP = MESH_COMMON + r"""
+import dataclasses
+cfg = dataclasses.replace(get_arch("gemma-2b"), **%(gemma)r)
+mesh = M.make_test_mesh(*%(mesh)r, device_type=dev.type)
+params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+# Phase L's batch (train_batch, seed 21)
+g = torch.Generator(device=dev).manual_seed(21)
+hi = min(32768, cfg.vocab_size)
+toks = torch.randint(2, hi, %(batch)r, generator=g, device=dev)
+labs = torch.randint(2, hi, %(batch)r, generator=g, device=dev)
+reset()
+loss1, _, g1 = S.loss_and_grads(params, cfg, toks, labs)
+sync()
+one_launches = launches()
+pspecs = shd.param_specs(cfg, params, mesh)
+g1 = local_of(g1, params, mesh, pspecs)
+dp = shd.distribute(params, mesh, pspecs)
+del params
+if dev.type == "cuda":
+    torch.cuda.empty_cache()
+bspec = shd.batch_spec(mesh, 2, toks.shape[0])
+batch = shd.distribute({"tokens": toks, "labels": labs}, mesh,
+                       {"tokens": bspec, "labels": bspec})
+batch["rho"] = torch.full((%(tiles)d,), 1.9, device=dev)
+state = S.TrainState(dp, adamw_init(dp),
+                     S.make_scheduler(%(tiles)d, dev).init(),
+                     torch.zeros((), dtype=torch.int32))
+with shd.axis_env(mesh):
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    loss2, _, g2 = S.loss_and_grads(state.params, cfg, batch["tokens"],
+                                    batch["labels"])
+    sync()
+    grads_s = time.perf_counter() - t0
+    grad_launches = launches()
+    worst = worst_leaf([g.to_local() for g in g2], g1)
+    loss2 = float(shd.full(loss2))
+    del g1, g2
+    step = S.make_train_step(cfg, %(tiles)d, device=dev)
+    reset()
+    shd.CUDA_GATHERS = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    comm = CommDebugMode()
+    ms, losses = [], []
+    for i in range(1 + %(warm)d):
+        RECORD[0] = i == 1
+        with (comm if i == 1 else contextlib.nullcontext()):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        RECORD[0] = False
+        losses.append(float(shd.full(m["loss"])))
+peak = (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+        else None)
+print("RESULT " + json.dumps({
+    "rank": rank, "loss_one_device": float(loss1), "loss_mesh": loss2,
+    "worst_leaf": worst, "one_launches": one_launches,
+    "grad_launches": grad_launches, "grads_s": grads_s,
+    "train_launches": launches(), "steps": 1 + %(warm)d,
+    "shapes": {f"{k} {s}": n for (k, s), n in SHAPES.items()},
+    "step_ms": ms, "losses": losses, "peak_gib": peak,
+    "collectives": dict(KINDS),
+    "comm_counts": {str(k): v for k, v in comm.get_comm_counts().items()},
+    "gathers": GATHERS,
+    "cuda_gathers_per_step": shd.CUDA_GATHERS / (1 + %(warm)d)}))
+"""
+
+MESH_WORKER_SMALL = MESH_COMMON + r"""
+from repro_torch.optim import compression as C
+import numpy as np
+mesh = M.make_test_mesh(*%(mesh)r, device_type=dev.type)
+out = {"rank": rank, "cases": {}}
+for arch, kw, tp, B, T in %(cases)r:
+    cfg = reduced(get_arch(arch), **kw)
+    state = S.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                               cfg, %(tiles)d)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (B, T + 1), generator=g,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "rho": torch.full((%(tiles)d,), 1.9, device=dev)}
+    reset()
+    loss1, _, g1 = S.loss_and_grads(state.params, cfg, batch["tokens"],
+                                    batch["labels"])
+    _, m1 = S.make_train_step(cfg, %(tiles)d, device=dev)(
+        tree_unflatten(state, [t.clone() for t in tree_leaves(state)]),
+        batch)
+    sync()
+    specs = S.train_state_specs(cfg, state, mesh, tp_attention=tp)
+    g1 = local_of(g1, state.params, mesh, specs.params)
+    dstate = shd.distribute(state, mesh, specs)
+    shape = cs.ShapeOf(B, T)
+    dbatch = shd.distribute(batch, mesh, S.batch_shardings(cfg, shape, mesh))
+    with shd.axis_env(mesh, tp_activations=tp):
+        reset()
+        CAPTURE[0] = True
+        loss2, _, g2 = S.loss_and_grads(dstate.params, cfg, dbatch["tokens"],
+                                        dbatch["labels"])
+        dstate, m2 = S.make_train_step(cfg, %(tiles)d, device=dev)(
+            dstate, dbatch)
+        sync()
+        CAPTURE[0] = False
+    out["cases"][arch] = {
+        "loss_one_device": float(loss1), "loss_mesh": float(shd.full(loss2)),
+        "step_loss": [float(m1["loss"]), float(shd.full(m2["loss"]))],
+        "worst_leaf": worst_leaf([x.to_local() for x in g2], g1),
+        "launches": launches(),
+        "shapes": {f"{k} {s}": n for (k, s), n in SHAPES.items()}}
+    out["cases"][arch]["held"] = hold_captured()
+
+# (c) the error-feedback all-reduce over every rank ("data" of a 4 x 1 mesh)
+cmesh = M.make_test_mesh(data=dist.get_world_size(), model=1,
+                         device_type=dev.type)
+res = []
+for shape in %(compress)r:
+    rng = np.random.default_rng(0)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    mean, st = C.compressed_allreduce(g, C.compress_grads_init(g), cmesh)
+    scale = float(g.abs().max() / 127.0)
+    n = dist.get_world_size()
+    rs = np.random.default_rng(7).standard_normal((n, *shape)).astype(
+        np.float32) * np.arange(1, n + 1, dtype=np.float32).reshape(
+            -1, *([1] * len(shape)))
+    mine = torch.from_numpy(rs[rank]).to(dev)
+    mean2, st2 = C.compressed_allreduce(mine, C.compress_grads_init(mine),
+                                        cmesh)
+    scale2 = float(np.abs(rs).max() / 127.0)
+    exact = torch.from_numpy(rs.mean(0)).to(dev)
+    ms = []
+    for _ in range(3):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        C.compressed_allreduce(mine, st2, cmesh)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res.append({"shape": list(shape),
+                "err": float((mean - g).abs().max()), "scale": scale,
+                "residual": float(st.error.abs().max()),
+                "ulp": float(np.spacing(np.float32(g.abs().max().item()))),
+                "err2": float((mean2 - exact).abs().max()),
+                "scale2": scale2,
+                "residual2": float(st2.error.abs().max()),
+                "mean2_sum": float(mean2.double().sum()),
+                "bytes": C.allreduce_bytes(mine), "ms": ms})
+out["compress"] = res
+print("RESULT " + json.dumps(out))
+"""
+
+
+class ShapeOf(NamedTuple):
+    """A train cell's shape, as `batch_shardings` reads it."""
+    global_batch: int
+    seq_len: int
+    kind: str = "train"
+
+
+# Phase O (a)'s changes to Gemma-2B (none: Phase L's configuration; the
+# CPU rehearsal shrinks it)
+MESH_GEMMA = {}
+
+
+def mesh_gemma_config():
+    """The configuration Phase O (a) trains: Gemma-2B with MESH_GEMMA."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("gemma-2b"), **MESH_GEMMA)
+
+
+def mesh_flash_pair(dev, gen, B, T, H, KV, d, dtype, where: str,
+                    route: str) -> dict:
+    """The flash forward and backward at one of Phase O's local shapes,
+    causal, on random inputs: each against its plain version (the output
+    within Phase G's bound, the statistics within TOL, each gradient
+    within FLASH_BWD_TOL of its largest magnitude), timed beside the
+    plain version, SDPA and the bound.  {"fwd": …, "bwd": …}, each with
+    the kernels line's keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    name = str(dtype).split(".")[-1]
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_F32_PER_S
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    q, k, v, do = r(B, T, H, d), r(B, T, KV, d), r(B, T, KV, d), \
+        r(B, T, H, d)
+    out, po, pm, pl = fa.flash_attention_stats(q, k, v)
+    ro, rm, rl = fa.flash_attention_stats_reference(q, k, v)
+    what = f"phase O flash ({name}) at {where}"
+    f_err = max(max_err((out,), (ro.to(dtype),), what, rtol=0.0,
+                        atol=FLASH_FWD_ATOL[name]),
+                max_err((pm, pl), (rm, rl), what))
+    g_k = fa.flash_attention_backward(q, k, v, po, pm, pl, do)
+    g_p = fa.flash_attention_backward_reference(q, k, v, po, pm, pl, do)
+    b_err = 0.0
+    for a, b in zip(g_k, g_p):
+        a, b = a.float(), b.float()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(rel <= FLASH_BWD_TOL[name], f"{what}: the backward differs "
+              f"by {rel:.3e} of the largest magnitude")
+        b_err = max(b_err, float((a - b).abs().max()))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+    cost = fa.flash_attention_cost(q, k, v)
+    bcost = fa.flash_attention_backward_cost(q, k, v)
+    res = {"fwd": dict(
+        max_abs_err=f_err,
+        ms=event_ms(lambda: fa.flash_attention(q, k, v), 10),
+        plain_ms=timed(lambda: fa.flash_attention_reference(q, k, v))[1],
+        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)), "bwd": dict(
+        max_abs_err=b_err,
+        ms=event_ms(lambda: fa.flash_attention_backward(
+            q, k, v, po, pm, pl, do), 10),
+        plain_ms=timed(lambda: fa.flash_attention_backward_reference(
+            q, k, v, po, pm, pl, do))[1],
+        library_ms=event_ms(lambda: torch.autograd.grad(
+            lib_o, (qs, ks, vs), do.transpose(1, 2), retain_graph=True),
+            10))}
+    for part, c in (("fwd", cost), ("bwd", bcost)):
+        res[part]["bound_ms"], res[part]["bound_by"] = bound(
+            c["bytes"], c["ops"], peak)
+    f, b = res["fwd"], res["bwd"]
+    print(f"[phaseO] flash_attention at {where} [{B}, {T}, {H} on {KV}, "
+          f"{d}] {name} causal, {route} route: max_abs_err vs plain "
+          f"{f_err:.3e}; {f['ms']:.4f} ms (median of 10, CUDA events), "
+          f"plain {f['plain_ms']:.1f} ms, SDPA {f['library_ms']:.4f} ms, "
+          f"bound {f['bound_ms']:.4f} ms by {f['bound_by']}; backward "
+          f"{b['ms']:.4f} ms, plain {b['plain_ms']:.1f} ms, SDPA's backward "
+          f"{b['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}, max_abs_err {b_err:.3e}")
+    return res
+
+
+def phase_o(dev, l_loss: float | None) -> list:
+    """Training on a (pod, data, model) mesh of gloo ranks on the card:
+    (a) Gemma-2B at full width and depth on (data 1, model 2) against its
+    one-device step (Phase L's seed and batch; ``l_loss`` its loss there),
+    the tensor-core flash kernels on each rank's local heads; (b) the
+    reduced families on (data 2, model 2), the ssd kernels on local heads;
+    (c) the error-feedback all-reduce on CUDA tensors.  Then each kernel
+    at the local shape it launched at, against its plain version, timed.
+    Returns the kernels line's mesh entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import multihost
+    from repro_torch.kernels import ssm_scan as sm
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = mesh_gemma_config()
+    L = cfg.n_layers
+    arg = lambda k: int(TRAIN_ARGV[TRAIN_ARGV.index(k) + 1])
+    Bg, Tg = arg("--batch"), arg("--seq")
+    fill = {"root": str(ROOT), "device": dev.type, "tiles": MESH_TILES,
+            "warm": MESH_WARM_STEPS, "gemma": MESH_GEMMA,
+            "batch": (Bg, Tg)}
+    # ---- (a) Gemma-2B, tensor parallel over two ranks
+    t0 = time.perf_counter()
+    ra = rank_results(multihost.run_process_group(
+        MESH_WORKER_TP % dict(fill, mesh=MESH_TP), MESH_TP[0] * MESH_TP[1],
+        timeout=900))
+    a_s = time.perf_counter() - t0
+    steps = 1 + MESH_WARM_STEPS
+    V_local = cfg.vocab_size // MESH_TP[1]
+    logits_slice = (Bg // MESH_TP[0]) * min(512, Tg) * V_local
+    for r in ra:
+        rel = abs(r["loss_mesh"] - r["loss_one_device"]) / abs(
+            r["loss_one_device"])
+        check(rel <= TRAIN_LOSS_TOL, f"phase O (a) rank {r['rank']}: loss "
+              f"{r['loss_mesh']} on the mesh, {r['loss_one_device']} on one "
+              f"device")
+        check(r["worst_leaf"] <= TRAIN_BF16_TOL, f"phase O (a) rank "
+              f"{r['rank']}: a gradient leaf differs from one device's by "
+              f"{r['worst_leaf']:.3e} of its largest magnitude")
+        check(all(x == x and abs(x) < 1e4 for x in r["losses"]),
+              f"phase O (a): losses {r['losses']}")
+        big = [s for s in r["gathers"]
+               if V_local in s and math.prod(s) >= logits_slice]
+        check(not big, f"phase O (a) rank {r['rank']}: all-gathers of a "
+              f"logits slice {big}")
+        if dev.type == "cuda":
+            want = {"flash": {"tensor_core": 2 * L * steps, "cuda_core": 0},
+                    "flash_bwd": {"tensor_core": L * steps, "cuda_core": 0},
+                    "ssd": 0, "ssd_bwd": 0}
+            check(r["train_launches"] == want, f"phase O (a) rank "
+                  f"{r['rank']}: launches {r['train_launches']}, want {want}")
+            check(r["grad_launches"] == r["one_launches"],
+                  f"phase O (a): the mesh's gradient launched "
+                  f"{r['grad_launches']}, one device {r['one_launches']}")
+    check(ra[0]["losses"] == ra[1]["losses"], f"phase O (a): the ranks' "
+          f"losses differ: {ra[0]['losses']} vs {ra[1]['losses']}")
+    warm = [float(np.median(r["step_ms"][1:])) for r in ra]
+    l_note = ("" if l_loss is None else f"; Phase L's one-device loss at "
+              f"this seed and batch {l_loss:.6f}")
+    print(f"[phaseO] (a) {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}), batch {Bg} x {Tg}, on a (data "
+          f"{MESH_TP[0]}, model {MESH_TP[1]}) mesh of gloo ranks on the "
+          f"card: step-1 loss "
+          f"{ra[0]['loss_mesh']:.6f} on the mesh, "
+          f"{ra[0]['loss_one_device']:.6f} on one device (bound "
+          f"{TRAIN_LOSS_TOL} relative){l_note}; gradient leaves within "
+          + ", ".join(f"{r['worst_leaf']:.3e}" for r in ra)
+          + f" of their largest magnitude per rank (bound {TRAIN_BF16_TOL},"
+          f" Phase L's); the gradient alone {ra[0]['grads_s']:.2f} s")
+    for r in ra:
+        print(f"[phaseO] (a) rank {r['rank']}: losses "
+              f"{json.dumps([round(x, 4) for x in r['losses']])}; step ms "
+              f"{json.dumps([round(x, 1) for x in r['step_ms']])} (warm "
+              f"median {float(np.median(r['step_ms'][1:])):.1f}, host clock "
+              f"after a synchronize); peak device memory "
+              + (f"{r['peak_gib']:.2f} GiB" if r["peak_gib"] is not None
+                 else "not measured")
+              + f"; launches in {steps} steps "
+              f"{json.dumps(r['train_launches'])}"
+              f" at the local shapes {json.dumps(r['shapes'])}; routed "
+              f"all-gathers a step {r['cuda_gathers_per_step']:.1f}")
+        print(f"[phaseO] (a) rank {r['rank']}: collectives of one warm step "
+              f"by kind [count, bytes]: {json.dumps(r['collectives'])}; "
+              f"CommDebugMode: {json.dumps(r['comm_counts'])}; no all-gather "
+              f"of a logits slice [{Bg // MESH_TP[0]}, {min(512, Tg)}, "
+              f"{V_local}]")
+    # ---- (b), (c): the reduced families and the compressed all-reduce
+    t0 = time.perf_counter()
+    rb = rank_results(multihost.run_process_group(
+        MESH_WORKER_SMALL % dict(fill, mesh=MESH_SMALL,
+                                 cases=MESH_SMALL_CASES,
+                                 compress=MESH_COMPRESS),
+        MESH_SMALL[0] * MESH_SMALL[1], timeout=600))
+    b_s = time.perf_counter() - t0
+    held_rel = {}           # each kernel's worst output over (b)'s ranks
+    for r in rb:
+        for arch, c in r["cases"].items():
+            rel = abs(c["loss_mesh"] - c["loss_one_device"]) / abs(
+                c["loss_one_device"])
+            srel = abs(c["step_loss"][1] - c["step_loss"][0]) / abs(
+                c["step_loss"][0])
+            check(rel <= 1e-5 and srel <= 1e-5 and c["worst_leaf"]
+                  <= TRAIN_F32_TOL, f"phase O (b) {arch} rank {r['rank']}: "
+                  f"loss {c['loss_mesh']} vs {c['loss_one_device']}, step "
+                  f"{c['step_loss']}, worst leaf {c['worst_leaf']:.3e}")
+            if dev.type == "cuda":
+                want = mesh_small_launches(arch)
+                check(c["launches"] == want, f"phase O (b) {arch} rank "
+                      f"{r['rank']}: launches {c['launches']}, want {want}")
+                ran = {k for k, v in want.items()
+                       if (sum(v.values()) if isinstance(v, dict) else v)}
+                held = {k.split()[0] for k in c["held"]}
+                check(held == ran, f"phase O (b) {arch} rank {r['rank']}: "
+                      f"held {sorted(held)} against their plain versions, "
+                      f"launched {sorted(ran)}")
+            for at, outs in c["held"].items():
+                gate = (FLASH_BWD_TOL if at.startswith("flash")
+                        else SSD_BWD_TOL)
+                for i, o in enumerate(outs):
+                    if o is None:
+                        continue
+                    diff, top, dt, finite = o
+                    rel = diff / max(top, 1e-30)
+                    check(finite and rel <= gate[dt], f"phase O (b) {arch} "
+                          f"rank {r['rank']}: {at} output {i} differs from "
+                          f"its plain version by {rel:.3e} of its largest "
+                          f"magnitude (bound {gate[dt]}) or is not finite")
+                    key = at.split()[0]
+                    held_rel[key] = max(held_rel.get(key, 0.0), rel)
+        for c in r["compress"]:
+            # the reference test's bounds; a residual may pass half a
+            # quantum by the f32 rounding of gl - q·scale (an ulp of |g|)
+            slack = 1e-9 if c["shape"] == [64, 32] else c["ulp"]
+            check(c["err"] <= c["scale"] and c["residual"]
+                  <= c["scale"] / 2 + slack, f"phase O (c) {c['shape']}: "
+                  f"error {c['err']}, residual {c['residual']}, scale "
+                  f"{c['scale']}")
+            check(c["err2"] <= c["scale2"] and c["residual2"]
+                  <= c["scale2"] / 2 + 4 * c["ulp"],
+                  f"phase O (c) {c['shape']} "
+                  f"differing gradients: {c['err2']} from the exact mean, "
+                  f"quantum {c['scale2']}")
+    for i, c in enumerate(rb[0]["compress"]):
+        check(len({r["compress"][i]["mean2_sum"] for r in rb}) == 1,
+              f"phase O (c) {c['shape']}: the ranks' means differ")
+    for arch in rb[0]["cases"]:
+        c = rb[0]["cases"][arch]
+        print(f"[phaseO] (b) {arch} reduced f32 on (data {MESH_SMALL[0]}, "
+              f"model {MESH_SMALL[1]}): loss {c['loss_mesh']:.6f} on the "
+              f"mesh, {c['loss_one_device']:.6f} on one device; gradient "
+              f"leaves within "
+              + ", ".join(f"{r['cases'][arch]['worst_leaf']:.2e}"
+                          for r in rb)
+              + f" per rank (bound {TRAIN_F32_TOL}); a train step's loss "
+              f"{c['step_loss'][1]:.6f} vs {c['step_loss'][0]:.6f}; "
+              f"launches on rank 0 {json.dumps(c['launches'])} at the local "
+              f"shapes {json.dumps(c['shapes'])}")
+    print(f"[phaseO] (b) every kernel launched again on the inputs it first "
+          f"met at each local shape, on every rank, against its plain "
+          f"version: worst output within "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(held_rel.items()))
+          + f" of its largest magnitude (bounds: flash "
+          f"{FLASH_BWD_TOL['float32']}, ssd {SSD_BWD_TOL['float32']}, f32)")
+    for c in rb[0]["compress"]:
+        print(f"[phaseO] (c) compressed_allreduce {c['shape']} on "
+              f"{len(rb)} ranks (CUDA tensors, gloo): error vs g "
+              f"{c['err']:.3e} <= scale {c['scale']:.3e}, residual "
+              f"{c['residual']:.3e}; differing gradients within "
+              f"{c['err2']:.3e} of the exact mean (quantum "
+              f"{c['scale2']:.3e}), the same on every rank; "
+              f"{c['bytes']:,} bytes a rank a call (int32, as f32's), "
+              f"ms a call {json.dumps([round(x, 2) for x in c['ms']])}")
+    # ---- the kernels at the local shapes the mesh launched them at
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B, T = Bg // MESH_TP[0], Tg
+    H, KV, d = cfg.n_heads // MESH_TP[1], cfg.n_kv_heads, cfg.head_dim
+    at = f"[{B}, {T}, {H}, {d}] [{KV}] bfloat16"
+    check(all(f"{kind} {at}" in ra[0]["shapes"] for kind in
+              ("flash", "flash_bwd")), f"phase O: Gemma-2B's local flash "
+          f"shape {at} is not one (a) launched at: {ra[0]['shapes']}")
+    pair_tc = mesh_flash_pair(dev, gen, B, T, H, KV, d, torch.bfloat16,
+                         "the mesh's local shape", "tensor-core")
+    shape_a = f"gemma-2b local [{B}, {T}, {H} on {KV}, {d}] bf16, 2 ranks"
+    # (b)'s local shapes, from its configurations and its mesh: granite's
+    # flash pair on the f32 route, RWKV6's ssd pair with u
+    (dp, tp), recorded = MESH_SMALL, rb[0]["cases"]
+
+    def local_shape(arch):
+        case = next(c for c in MESH_SMALL_CASES if c[0] == arch)
+        return mesh_small_config(arch), case[3] // dp, case[4]
+
+    gcfg, sB, sT = local_shape("granite-3-2b")
+    H, KV, d = gcfg.n_heads // tp, max(gcfg.n_kv_heads // tp, 1), \
+        gcfg.head_dim
+    at = f"[{sB}, {sT}, {H}, {d}] [{KV}] float32"
+    check(all(f"{kind} {at}" in recorded["granite-3-2b"]["shapes"] for kind
+              in ("flash", "flash_bwd")), f"phase O: granite's local flash "
+          f"shape {at} is not one (b) launched at: "
+          f"{recorded['granite-3-2b']['shapes']}")
+    pair_cc = mesh_flash_pair(dev, gen, sB, sT, H, KV, d, torch.float32,
+                         "granite's local shape in (b)", "CUDA-core")
+    shape_g = (f"granite-3-2b reduced local [{sB}, {sT}, {H} on {KV}, {d}] "
+               f"f32, 4 ranks; launches: granite's and mixtral's on rank 0")
+    rcfg, sB, sT = local_shape("rwkv6-1.6b")
+    sN = rcfg.rwkv_head_dim
+    sH = rcfg.d_model // sN // tp
+    at = f"[{sB}, {sT}, {sH}, {sN}] [{sH}] float32"
+    for kind in ("ssd", "ssd_bwd"):
+        check(f"{kind} {at}" in recorded["rwkv6-1.6b"]["shapes"],
+              f"phase O: RWKV6's local {kind} shape {at} is not one (b) "
+              f"launched at: {recorded['rwkv6-1.6b']['shapes']}")
+    rs = lambda *s: torch.rand(s, generator=gen, device=dev)
+    dd = 0.8 + 0.199 * rs(sB, sT, sH, sN)
+    bb_, cc = (0.2 * torch.randn(sB, sT, sH, sN, generator=gen, device=dev)
+               for _ in range(2))
+    xx, dy = (torch.randn(sB, sT, sH, sN, generator=gen, device=dev)
+              for _ in range(2))
+    uu = 0.1 * torch.randn(sH, sN, generator=gen, device=dev)
+    ck = sm.chunk_for(sT, 64)
+    y, hT = sm.ssd(dd, bb_, xx, cc, u=uu, include_current=False)
+    yr, hr = sm.ssd_reference(dd, bb_, xx, cc, u=uu, include_current=False,
+                              chunk=ck)
+    s_err = max_err((y, hT), (yr, hr), "phase O ssd at the local shape",
+                    rtol=3e-5, atol=3e-5)
+    s_ms = event_ms(lambda: sm.ssd(dd, bb_, xx, cc, u=uu,
+                                   include_current=False), 10)
+    s_plain = timed(lambda: sm.ssd_reference(
+        dd, bb_, xx, cc, u=uu, include_current=False, chunk=ck))[1]
+    scost = sm.ssd_cost(dd, bb_, xx, cc, uu)
+    s_bound, s_by = bound(scost["bytes"], scost["ops"])
+    hs = sm.ssd_states(dd, bb_, xx, cc, u=uu, chunk=ck,
+                       include_current=False)[2]
+    bkw = dict(chunk=ck, include_current=False)
+    g_k = sm.ssd_backward(dd, bb_, xx, cc, uu, None, hs, dy, None, **bkw)
+    g_p = sm.ssd_backward_reference(dd, bb_, xx, cc, uu, None, hs, dy, None,
+                                    **bkw)
+    sb_err = 0.0
+    for name, a, b in zip(("dd", "db", "dx", "dc", "du", "dh0"), g_k, g_p):
+        if b is None:
+            check(a is None, f"phase O ssd backward: {name} without h0")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(bool(torch.isfinite(a).all()) and rel
+              <= SSD_BWD_TOL["float32"], f"phase O ssd backward at the "
+              f"local shape: {name} {rel:.3e} of its largest magnitude")
+        sb_err = max(sb_err, float((a - b).abs().max()))
+    sb_ms = event_ms(lambda: sm.ssd_backward(
+        dd, bb_, xx, cc, uu, None, hs, dy, None, **bkw), 10)
+    sb_plain = timed(lambda: sm.ssd_backward_reference(
+        dd, bb_, xx, cc, uu, None, hs, dy, None, **bkw))[1]
+    sbcost = sm.ssd_backward_cost(dd, bb_, xx, cc, uu, None,
+                                  include_current=False)
+    sb_bound, sb_by = bound(sbcost["bytes"], sbcost["ops"],
+                            PEAK_TF32_PER_S / 3)
+    print(f"[phaseO] ssd at RWKV6's local shape in (b) [{sB}, {sT}, {sH}, "
+          f"{sN}/{sN}] f32 with u: max_abs_err vs plain {s_err:.3e}; "
+          f"{s_ms:.4f} ms (median of 10), plain {s_plain:.1f} ms, bound "
+          f"{s_bound:.4f} ms by {s_by}; backward {sb_ms:.4f} ms, plain "
+          f"{sb_plain:.1f} ms, bound {sb_bound:.4f} ms by {sb_by} (3xTF32: "
+          f"a third of the TF32 peak), max_abs_err {sb_err:.3e}")
+    print(f"[phaseO] phase O {time.perf_counter() - t_phase:.1f} s ((a) "
+          f"{a_s:.1f} s, (b) and (c) {b_s:.1f} s with start-up)")
+    a0 = ra[0]
+    tc_launch = a0["train_launches"]["flash"]["tensor_core"]
+    tcb_launch = a0["train_launches"]["flash_bwd"]["tensor_core"]
+    b_launch = lambda kind, route=None: sum(
+        c["launches"][kind] if route is None else
+        c["launches"][kind][route] for c in recorded.values())
+    shape_r = f"rwkv6 reduced local [{sB}, {sT}, {sH}, {sN}/{sN}] f32, " \
+        f"4 ranks"
+    return [
+        {"name": "flash_attention_tc_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:94",
+         "launches": tc_launch, **pair_tc["fwd"], "shape": shape_a,
+         "warm_step_ms_mesh": warm, "peak_gib_mesh": [
+             r["peak_gib"] for r in ra]},
+        {"name": "flash_attention_bwd_tc_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+         "replaces": "src/repro/kernels/ref.py:201",
+         "launches": tcb_launch, **pair_tc["bwd"], "shape": shape_a},
+        {"name": "flash_attention_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:94",
+         "launches": b_launch("flash", "cuda_core"), **pair_cc["fwd"],
+         "max_rel_err_mesh_inputs": held_rel.get("flash"),
+         "shape": shape_g},
+        {"name": "flash_attention_bwd_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/ref.py:201",
+         "launches": b_launch("flash_bwd", "cuda_core"), **pair_cc["bwd"],
+         "max_rel_err_mesh_inputs": held_rel.get("flash_bwd"),
+         "shape": shape_g},
+        {"name": "ssd_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:94",
+         "launches": b_launch("ssd"), "max_abs_err": s_err, "ms": s_ms,
+         "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
+         "library_ms": None,
+         "max_rel_err_mesh_inputs": held_rel.get("ssd"), "shape": shape_r},
+        {"name": "ssd_backward_mesh", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+         "replaces": "src/repro/kernels/ref.py:283",
+         "launches": b_launch("ssd_bwd"), "max_abs_err": sb_err,
+         "ms": sb_ms, "plain_ms": sb_plain, "bound_ms": sb_bound,
+         "bound_by": sb_by, "library_ms": None,
+         "max_rel_err_mesh_inputs": held_rel.get("ssd_bwd"),
+         "shape": shape_r}]
 
 
 if __name__ == "__main__":

@@ -25,7 +25,15 @@ Contract:
     thread;
   * auto-resume: `restore_latest()` finds the newest complete step;
   * ``keep_n`` GC; the manifest's ``extra`` dict carries a service's host
-    bookkeeping atomically with its arrays.
+    bookkeeping atomically with its arrays;
+  * on a mesh: `save` of a tree holding DTensors gathers each one onto
+    the mesh's first rank alone (one leaf at a time, before the writer
+    thread starts: collectives cannot run there), which alone writes;
+    a blocking save, and `wait` after an async one, return on every rank
+    of the mesh only once that rank has renamed the step.
+    `restore(..., shardings=)` places each leaf by its `NamedSharding` on
+    whatever mesh the new job runs — the elastic re-mesh — and a DTensor
+    template leaf is placed as that leaf.
 """
 from __future__ import annotations
 
@@ -86,6 +94,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._mesh = None        # the mesh of a distributed save in flight
 
     # ------------------------------------------------------------- saving --
     def save(self, step: int, state, blocking: bool = False,
@@ -97,11 +106,25 @@ class CheckpointManager:
         manifest (read back through ``manifest(step)["extra"]``) — how a
         service persists its host bookkeeping atomically WITH the arrays."""
         self.wait()                      # one in-flight save at a time
+        leaves = tree_leaves(state)
+        meshes = {x.device_mesh for x in leaves if _is_distributed(x)}
+        if len(meshes) > 1:
+            raise ValueError(f"save: the leaves lie on {len(meshes)} meshes")
+        mesh = meshes.pop() if meshes else None
+        writer = mesh is None or not any(mesh.get_coordinate())
         host, dtypes = [], []
-        for leaf in tree_leaves(state):
-            arr, dt = _to_host(leaf)
-            host.append(arr)
-            dtypes.append(dt)
+        for leaf in leaves:
+            if _is_distributed(leaf):
+                leaf = _gather_to_first(leaf)
+            if writer:                   # on a mesh its first rank alone
+                arr, dt = _to_host(leaf)
+                host.append(arr)
+                dtypes.append(dt)
+        self._mesh = mesh
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         spec = {"treedef": f"{type(state).__name__}, {len(host)} leaves",
                 "n_leaves": len(host),
                 "shapes": [list(h.shape) for h in host],
@@ -129,15 +152,20 @@ class CheckpointManager:
 
         if blocking:
             write()
-            self._raise_if_failed()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Block until the save in flight is on disk; after a save on a
+        mesh, on every rank of it (a collective: every rank calls it)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _mesh_barrier(mesh)
         self._raise_if_failed()
 
     def _raise_if_failed(self):
@@ -171,13 +199,21 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, shardings=None):
         """Restore into the structure of ``template``: each leaf takes the
         template leaf's dtype and device (a host clock stays on the host),
-        and must have its shape."""
+        and must have its shape.  ``shardings``: an optional congruent tree
+        of `sharding.NamedSharding`s — each leaf is then placed on its mesh
+        by its spec (every rank reads the whole array and keeps its own
+        slice); a DTensor template leaf is placed as that leaf."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         man = self.manifest(step)
         leaves = tree_leaves(template)
+        places = (tree_leaves(shardings) if shardings is not None
+                  else [None] * len(leaves))
+        if len(places) != len(leaves):
+            raise ValueError(f"restore: {len(places)} shardings for "
+                             f"{len(leaves)} leaves")
         if man["n_leaves"] != len(leaves):
             raise ValueError(f"checkpoint step {step} holds "
                              f"{man['n_leaves']} leaves, the template "
@@ -192,12 +228,83 @@ class CheckpointManager:
             t = torch.from_numpy(np.array(a, order="C"))
             if man["dtypes"][i] == "bfloat16":
                 t = t.view(torch.bfloat16)
-            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            out.append(_place(t, leaf, places[i]))
         return tree_unflatten(template, out)
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, shardings=None):
         """(state, step) from the newest complete checkpoint, or (None, -1)."""
         steps = self.steps()
         if not steps:
             return None, -1
-        return self.restore(steps[-1], template), steps[-1]
+        return self.restore(steps[-1], template, shardings), steps[-1]
+
+
+def _is_distributed(x) -> bool:
+    from repro_torch.distributed.sharding import is_distributed
+    return is_distributed(x)
+
+
+def _gather_to_first(x):
+    """DTensor ``x`` whole on its mesh's first rank, None on every other.
+    The mesh's axes are taken from the last: each gathers its shards
+    (``dist.gather``) onto coordinate 0 of that axis, and a rank off
+    coordinate 0 is done after it, so only the first rank ever holds the
+    whole.  Over gloo the shards travel in host memory.  A leaf an axis
+    does not divide evenly raises (its shards would differ in size)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    for dim in range(x.ndim):
+        parts = 1
+        for i, p in enumerate(x.placements):
+            parts *= mesh.size(i) if p.is_shard(dim) else 1
+        if x.shape[dim] % parts:
+            raise ValueError(f"save: a leaf of shape {tuple(x.shape)} is "
+                             f"split unevenly ({x.placements})")
+    coord = mesh.get_coordinate()
+    t = x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if p.is_shard():
+            group = mesh.get_group(i)
+            part = t.contiguous()
+            if dist.get_backend(group) == "gloo":
+                part = part.cpu()
+            parts = ([torch.empty_like(part) for _ in range(mesh.size(i))]
+                     if coord[i] == 0 else None)
+            dist.gather(part, parts, dst=dist.get_global_rank(group, 0),
+                        group=group)
+            if coord[i] == 0:
+                t = torch.cat(parts, dim=p.dim)
+        if coord[i] != 0:
+            return None
+    return t
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits here until its first rank has come:
+    a barrier on each axis's groups in turn, the first axis first."""
+    import torch.distributed as dist
+
+    for i in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(i))
+
+
+def _place(t: torch.Tensor, leaf, sharding) -> torch.Tensor:
+    """A restored host tensor in ``leaf``'s dtype, placed by ``sharding``
+    (a `NamedSharding`), as ``leaf`` when that is a DTensor, else on
+    ``leaf``'s device."""
+    from repro_torch.distributed import sharding as shd
+
+    t = t.to(dtype=leaf.dtype)
+    if sharding is not None:
+        mesh, pls = sharding.mesh, sharding.placements
+    elif _is_distributed(leaf):
+        mesh, pls = leaf.device_mesh, leaf.placements
+    else:
+        return t.to(device=leaf.device)
+    return shd.distribute_leaf(t.to(mesh.device_type), mesh, pls)

@@ -12,10 +12,15 @@ Each kernel wrapper runs its hand-written CUDA kernel for CUDA tensors and
 its plain PyTorch version for CPU tensors: the tensors' device decides,
 nothing else (there is no environment switch).  A failed build or launch
 raises; it never falls back to the plain version.
+
+On a mesh (DTensor inputs) `attention`'s flash route and `ssd` run the same
+wrappers on each rank's local batch and head shard
+(`sharding.local_attention`, `sharding.local_ssd`); the kernel modules
+themselves take plain tensors only.
 """
-from repro_torch.kernels import ref
+from repro_torch.distributed import sharding
+from repro_torch.kernels import ref, ssm_scan
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssm_scan import ssd
 from repro_torch.kernels.thermal_conv import thermal_conv
 
 ssd_decode_step = ref.ssd_decode_step
@@ -31,5 +36,21 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset,
                                  kv_positions=kv_positions, scale=scale)
+    if sharding.is_distributed(q):
+        return sharding.local_attention(
+            lambda a, b, c: flash_attention(a, b, c, causal=causal,
+                                            window=window, q_offset=q_offset,
+                                            scale=scale), q, k, v)
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset, scale=scale)
+
+
+def ssd(d, b, x, c, *, u=None, h0=None, chunk=64, include_current=True):
+    """The chunked recurrence (`ssm_scan.ssd`, same arguments)."""
+    if sharding.is_distributed(x):
+        return sharding.local_ssd(
+            lambda *t: ssm_scan.ssd(*t[:4], u=t[4], h0=t[5], chunk=chunk,
+                                    include_current=include_current),
+            d, b, x, c, u, h0)
+    return ssm_scan.ssd(d, b, x, c, u=u, h0=h0, chunk=chunk,
+                        include_current=include_current)

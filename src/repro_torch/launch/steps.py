@@ -1,4 +1,5 @@
-"""Step functions: the train step with its state, and the serving steps.
+"""Step functions (train, prefill, decode), their specs on a mesh and
+stand-ins for every input.
 
 Port of `repro.launch.steps`.  PyTorch runs eagerly, so these are the
 plain functions the reference hands to ``jax.jit``.  The V24 thermal
@@ -6,9 +7,12 @@ scheduler is a member of the train state and advances inside the train
 step, as in the reference.  Tokens may be integer ids or a stub frontend's
 embeddings (train and prefill [B, S, D], decode [B, D]).
 
-The mesh and dry-run pieces of the reference (``train_state_specs``,
-``input_specs``, ``batch_shardings``) wait for training on the mesh and
-the XLA tooling steps (ROADMAP queue 1 steps 9c and 11).
+On a mesh: `train_state_specs` and `batch_shardings` give the specs,
+`sharding.distribute` places a state and a batch by them, and
+`make_train_step`'s step runs unchanged on the placed (DTensor) state
+under `sharding.axis_env` — the counterpart of jitting it with
+``in_shardings``.  `input_specs` gives fake tensors (shapes and dtypes, no
+memory), the counterpart of the reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.scheduler import (SchedulerConfig, SchedulerState,
                                         ThermalScheduler)
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P, constrain
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
                                      adamw_update)
@@ -50,6 +56,21 @@ def init_train_state(gen: torch.Generator, cfg: ArchConfig,
                       step=torch.zeros((), dtype=torch.int32))
 
 
+def train_state_specs(cfg: ArchConfig, state: TrainState, mesh, *,
+                      tp_attention: bool = True) -> TrainState:
+    """Specs of a train state: the parameters' (`sharding.param_specs`;
+    ``tp_attention=False`` the EP-only mode), the AdamW moments inherit
+    them, the scheduler, the step and AdamW's count are replicated."""
+    pspecs = sharding.param_specs(cfg, state.params, mesh,
+                                  tp_attention=tp_attention)
+    return TrainState(
+        params=pspecs,
+        opt=sharding.state_specs(cfg, state.opt, pspecs),
+        sched=sharding.map_with_path(lambda _, x: P(), state.sched),
+        step=P(),
+    )
+
+
 # ============================================================= train step ==
 def loss_and_grads(params, cfg: ArchConfig, tokens, labels, *,
                    remat: bool = True):
@@ -57,13 +78,18 @@ def loss_and_grads(params, cfg: ArchConfig, tokens, labels, *,
     gradient with respect to each parameter leaf, the leaves in
     `tree_leaves` order (a leaf the loss does not read gets zeros, as
     ``jax.grad`` gives it).  The gradient is taken with respect to views
-    of the parameters that require grad, so ``params`` need not."""
+    of the parameters that require grad, so ``params`` need not.  On a
+    mesh each gradient comes back placed as its parameter (a partial sum
+    over the batch's axes reduced, or reduced and scattered)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, metrics = tf.loss_fn(tree_unflatten(params, leaves), cfg, tokens,
                                labels, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if sharding.is_distributed(g) and g.placements != p.placements
+             else g for p, g in zip(leaves, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -81,8 +107,12 @@ def make_train_step(cfg: ArchConfig, n_tiles: int,
     "adamw_update"), so a profile attributes device time to each.  With
     ``n_microbatches`` > 1 the batch runs in B / n consecutive slices and
     the gradients are accumulated in f32 and averaged before one update,
-    as the reference's scan does.  ``device`` is the scheduler's (the
-    parameters' device).
+    as the reference's scan does, each slice pinned to the batch's axes
+    on a mesh.  ``device`` is the scheduler's (the parameters' device).
+    On a mesh (a state placed by `train_state_specs`, the batch by
+    `batch_shardings`, the step called under `sharding.axis_env`) the
+    scheduler, which every rank holds whole, steps on its local values
+    (`sharding.on_local`).
     """
     sched = make_scheduler(n_tiles, device)
 
@@ -96,13 +126,16 @@ def make_train_step(cfg: ArchConfig, n_tiles: int,
             loss, metrics, grads = grads_of(state.params, tokens, labels)
         else:
             mb = tokens.shape[0] // n_microbatches
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            acc = [torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
                    for p in tree_leaves(state.params)]
             losses, nlls, auxs = [], [], []
             for i in range(n_microbatches):
                 rows = slice(i * mb, (i + 1) * mb)
-                loss_i, m_i, g_i = grads_of(state.params, tokens[rows],
-                                            labels[rows])
+                t, lab = tokens[rows], labels[rows]
+                t = constrain(t, ("dp",) + (None,) * (t.ndim - 1))
+                lab = constrain(lab, ("dp",) + (None,) * (lab.ndim - 1))
+                loss_i, m_i, g_i = grads_of(state.params, t, lab)
                 for a, g in zip(acc, g_i):
                     a.add_(g.float())
                 del g_i
@@ -118,7 +151,8 @@ def make_train_step(cfg: ArchConfig, n_tiles: int,
                 tree_unflatten(state.params, grads), state.opt,
                 state.params, opt_cfg)
         del grads
-        sst, sout = sched.update(state.sched, batch["rho"])
+        sst, sout = sharding.on_local(sched.update, state.sched,
+                                      batch["rho"])
         new = TrainState(params=params, opt=opt, sched=sst,
                          step=state.step + 1)
         return new, {
@@ -150,3 +184,53 @@ def make_decode_step(cfg: ArchConfig):
     def decode_step(params, cache, token, pos: int):
         return tf.decode_step(params, cfg, cache, token, pos)
     return decode_step
+
+
+# ============================================================ input specs ==
+def _fake(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, n_tiles: int = 256
+                ) -> dict[str, Any]:
+    """Stand-ins for every model input of the cell's step: fake tensors
+    (`torch._subclasses.fake_tensor.FakeTensorMode`; shapes and dtypes, no
+    memory), as the reference's ``ShapeDtypeStruct``s.
+
+    A decode cell's cache (the carried state of its step) comes from
+    `transformer.init_cache` under the fake mode.  Stub-frontend archs
+    (vlm / audio) take precomputed embeddings.
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    B, S = shape.global_batch, shape.seq_len
+    stub = cfg.frontend != "token"
+    emb = getattr(torch, cfg.dtype)
+    with FakeTensorMode():
+        if shape.kind in ("train", "prefill"):
+            tok = (_fake((B, S, cfg.d_model), emb) if stub
+                   else _fake((B, S), torch.int32))
+            if shape.kind == "prefill":
+                return {"tokens": tok}
+            return {"tokens": tok, "labels": _fake((B, S), torch.int32),
+                    "rho": _fake((n_tiles,), torch.float32)}
+        tok = (_fake((B, cfg.d_model), emb) if stub
+               else _fake((B,), torch.int32))
+        return {"cache": tf.init_cache(cfg, B, S), "token": tok,
+                "pos": _fake((), torch.int32)}
+
+
+def batch_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+    """Specs of the cell's inputs (the keys of `input_specs`)."""
+    stub = cfg.frontend != "token"
+    B = shape.global_batch
+    if shape.kind == "train":
+        return {"tokens": sharding.batch_spec(mesh, 3 if stub else 2, B),
+                "labels": sharding.batch_spec(mesh, 2, B),
+                "rho": P()}
+    if shape.kind == "prefill":
+        return {"tokens": sharding.batch_spec(mesh, 3 if stub else 2, B)}
+    cache = input_specs(cfg, shape)["cache"]
+    return {"cache": sharding.cache_specs(cfg, cache, mesh),
+            "token": sharding.batch_spec(mesh, 2 if stub else 1, B),
+            "pos": P()}

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain_heads, split_heads
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal, param_dtype, rms_norm, rope
 
@@ -58,12 +59,13 @@ def gqa_forward(p: dict, x, cfg: ArchConfig, positions):
     """Prefill full-sequence attention.  Returns (out, (k, v))."""
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, h, dh)
-    k = (x @ p["wk"]).reshape(B, S, kv, dh)
-    v = (x @ p["wv"]).reshape(B, S, kv, dh)
+    q = constrain_heads(split_heads(x @ p["wq"], (B, S, h, dh)))
+    k = constrain_heads(split_heads(x @ p["wk"], (B, S, kv, dh)))
+    v = constrain_heads(split_heads(x @ p["wv"], (B, S, kv, dh)))
     q = rope(q, positions, theta=cfg.rope_theta)
     k = rope(k, positions, theta=cfg.rope_theta)
-    o = ops.attention(q, k, v, causal=True, window=_window(cfg))
+    o = constrain_heads(ops.attention(q, k, v, causal=True,
+                                      window=_window(cfg)))
     return o.reshape(B, S, h * dh) @ p["wo"], (k, v)
 
 
@@ -133,17 +135,18 @@ def mla_forward(p: dict, x, cfg: ArchConfig, positions):
     B, S, _ = x.shape
     h, dh, r, rd = cfg.n_heads, cfg.head_dim, cfg.mla_kv_lora, \
         cfg.mla_rope_dim
-    q = (x @ p["wq"]).reshape(B, S, h, dh + rd)
+    q = constrain_heads(split_heads(x @ p["wq"], (B, S, h, dh + rd)))
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
     ckr = x @ p["w_dkv"]                                   # [B, S, r+rd]
     c = rms_norm(ckr[..., :r], p["kv_norm"], cfg.norm_eps)
     k_rope = rope(ckr[..., None, r:], positions, theta=cfg.rope_theta)
-    k_nope = (c @ p["w_uk"]).reshape(B, S, h, dh)
-    v = (c @ p["w_uv"]).reshape(B, S, h, dh)
+    k_nope = constrain_heads(split_heads(c @ p["w_uk"], (B, S, h, dh)))
+    v = constrain_heads(split_heads(c @ p["w_uv"], (B, S, h, dh)))
     k = torch.cat([k_nope, k_rope.expand(B, S, h, rd)], -1)
     qf = torch.cat([q_nope, q_rope], -1)
-    o = ops.attention(qf, k, v, scale=(dh + rd) ** -0.5)
+    o = constrain_heads(ops.attention(qf, k, v,
+                                      scale=(dh + rd) ** -0.5))
     return o.reshape(B, S, h * dh) @ p["wo"], (c, k_rope[:, :, 0])
 
 

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -96,6 +98,7 @@ def mlp_apply(p: dict, x, kind: str):
         h = F.silu(x @ p["w_gate"]) * up
     else:
         h = F.gelu(up, approximate="tanh")
+    h = constrain(h, ("dp",) + (None,) * (h.ndim - 2) + ("tp",))
     return h @ p["w_down"]
 
 
@@ -167,21 +170,41 @@ def moe_apply(p: dict, x, cfg: ArchConfig, opts: MoEOptions | None = None):
     that is a few of E.  The combine sums each token's k weighted rows in
     slot order (the one-hot product sums the same k terms), then casts to
     x's dtype; the shared experts run in x's dtype, as in the reference.
+
+    On a mesh (DTensor x) the routed experts run in `_moe_routed_mesh`.
     """
     if opts is None:
         opts = MoEOptions(capacity_factor=cfg.moe_capacity_factor)
     B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    if sharding.is_distributed(x):
+        y, aux = _moe_routed_mesh(p, xf, cfg, opts)
+    else:
+        y, aux = _moe_routed(xf, p["router"], p["we_gate"], p["we_up"],
+                             p["we_down"], cfg, opts)
+    if cfg.n_shared_experts:
+        hs = F.silu(xf @ p["ws_gate"]) * (xf @ p["ws_up"])
+        y = y + (hs @ p["ws_down"]).to(x.dtype)
+    return y.reshape(B, S, D), aux
+
+
+def _moe_routed(xf, router, we_gate, we_up, we_down, cfg: ArchConfig,
+                opts: MoEOptions, e0: int = 0):
+    """The routed experts of `moe_apply` on tokens xf [N, D]: (y [N, D] in
+    xf's dtype, aux).  The expert weights hold experts [e0, e0 + len) of
+    the E; tokens routed to the others add nothing here (a rank's share
+    of an expert-parallel layer)."""
+    N, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
-    N = B * S
-    xf = x.reshape(N, D)
+    El = we_gate.shape[0]
     g = min(opts.group_size, N)
     while N % g:
         g //= 2
     ng = N // g
     cap = max(int(g * k / E * opts.capacity_factor), 1)
-    dev = x.device
+    dev = xf.device
 
-    probs = torch.softmax(xf.float() @ p["router"].float(), -1)     # [N, E]
+    probs = torch.softmax(xf.float() @ router.float(), -1)        # [N, E]
     topw, topi = torch.topk(probs, k, dim=-1)                      # [N, k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
@@ -189,13 +212,18 @@ def moe_apply(p: dict, x, cfg: ArchConfig, opts: MoEOptions | None = None):
     aux = E * torch.sum(probs.mean(0) * ce)
 
     used = torch.unique(topi)                      # ascending expert ids
+    mine = None
+    if El < E:
+        used = used[(used >= e0) & (used < e0 + El)]
+        mine = torch.zeros(E, dtype=torch.bool, device=dev)
+        mine[e0:e0 + El] = True
     U = used.numel()
     slot = torch.zeros(E, dtype=torch.long, device=dev)
     slot[used] = torch.arange(U, device=dev)
-    wg, wu, wd = (_experts_f32(p[n], used, E)
-                  for n in ("we_gate", "we_up", "we_down"))
+    wg, wu, wd = (_experts_f32(w, used - e0, El)
+                  for w in (we_gate, we_up, we_down))
 
-    y = torch.empty((N, D), dtype=x.dtype, device=dev)
+    y = torch.empty((N, D), dtype=xf.dtype, device=dev)
     passes = -(-ng // max(_PASS_TOKENS // g, 1))
     per = -(-ng // passes)                         # groups per pass, even
     for g0 in range(0, ng, per):
@@ -205,7 +233,10 @@ def moe_apply(p: dict, x, cfg: ArchConfig, opts: MoEOptions | None = None):
         ig = topi[t0:t1].reshape(c, g * k)
         arrive = (F.one_hot(ig, E).cumsum(1) - 1).gather(
             -1, ig[..., None])[..., 0]
-        keep = (arrive < cap).reshape(c * g, k)
+        keep = arrive < cap
+        if mine is not None:
+            keep = keep & mine[ig]
+        keep = keep.reshape(c * g, k)
         group = torch.arange(c, device=dev)[:, None].expand(c, g * k)
         row = ((slot[ig] * c + group) * cap + arrive).reshape(c * g, k)
         row = torch.where(keep, row, 0)            # [U, c, cap] flattened
@@ -217,8 +248,43 @@ def moe_apply(p: dict, x, cfg: ArchConfig, opts: MoEOptions | None = None):
         ye = torch.bmm(h, wd).reshape(U * c * cap, D)
         w = torch.where(keep, topw[t0:t1], 0.0)
         y[t0:t1] = (ye[row] * w[..., None]).sum(1)
+    return y, aux
 
-    if cfg.n_shared_experts:
-        hs = F.silu(xf @ p["ws_gate"]) * (xf @ p["ws_up"])
-        y = y + (hs @ p["ws_down"]).to(x.dtype)
-    return y.reshape(B, S, D), aux
+
+def _moe_routed_mesh(p: dict, xf, cfg: ArchConfig, opts: MoEOptions):
+    """`_moe_routed` on a mesh (``local_map``).  The capacity-bounded
+    dispatch groups span the batch's shards, so every rank routes the
+    whole batch (the tokens gathered over the DP axes, each DP rank
+    repeating the same work) through its share of the experts, as the
+    weights are split over "model": whole experts (EP, ``e0`` its first)
+    or a slice of every expert's FFN width (TP inside the expert).  The
+    weights' FSDP shards are gathered.  y and aux come back as partial
+    sums over "model" (aux counted on its first rank only), replicated
+    over the other axes."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xf.device_mesh
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    ws = [p[n] for n in ("we_gate", "we_up", "we_down")]
+    wpl = [[q if (i == mi and q.is_shard()) else Replicate()
+            for i, q in enumerate(w.placements)] for w in ws]
+    split = mi is not None and any(pl[mi].is_shard() for pl in wpl)
+    rep = [Replicate()] * mesh.ndim
+    part = [Partial() if (split and i == mi) else Replicate()
+            for i in range(mesh.ndim)]
+    xf = xf.redistribute(mesh, rep)
+    router = p["router"].redistribute(mesh, rep)
+    ws = [w.redistribute(mesh, pl) for w, pl in zip(ws, wpl)]
+
+    def local(x, r, wg, wu, wd):
+        coord = mesh.get_coordinate()[mi] if split else 0
+        e0 = coord * wg.shape[0] if wg.shape[0] < cfg.n_experts else 0
+        y, aux = _moe_routed(x, r, wg, wu, wd, cfg, opts, e0)
+        return y, aux if coord == 0 else aux * 0.0
+
+    return local_map(local, out_placements=(part, part),
+                     in_placements=(rep, rep, *wpl),
+                     in_grad_placements=(part, part, *wpl),
+                     device_mesh=mesh)(xf, router, *ws)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain, split_heads
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal, param_dtype
 
@@ -84,10 +85,12 @@ def _mamba_pre(p: dict, x, cfg: ArchConfig, conv_state=None):
     dt_raw = bcdt[..., 2 * n:].float()
     delta = softplus(dt_raw + p["dt_bias"][None, None])          # [B,T,H]
     decay = torch.exp(-delta * torch.exp(p["a_log"])[None, None])
-    xs = xc.reshape(B, T, hs, di // hs)
-    d_full = decay[..., None].expand(B, T, hs, n)
-    b_full = delta[..., None] * b_in[:, :, None, :].expand(B, T, hs, n)
-    c_full = c_in[:, :, None, :].expand(B, T, hs, n)
+    hspec = ("dp", None, "tp", None)
+    xs = constrain(split_heads(xc, (B, T, hs, di // hs)), hspec)
+    d_full = constrain(decay[..., None].expand(B, T, hs, n), hspec)
+    b_full = constrain(delta[..., None]
+                       * b_in[:, :, None, :].expand(B, T, hs, n), hspec)
+    c_full = constrain(c_in[:, :, None, :].expand(B, T, hs, n), hspec)
     # the tail is copied out so a cached tail does not hold all of xpad
     return xs, z, d_full, b_full, c_full, xpad[:, -3:].clone()
 
@@ -172,7 +175,8 @@ def rwkv6_time_mix(p: dict, x, cfg: ArchConfig, prev_x=None, h0=None,
     nh = D // hd
     prev = x.new_zeros((B, 1, D)) if prev_x is None else prev_x
     r, k, v, decay, g = _time_mix_in(p, x, _shift(x, prev))
-    heads = lambda t: t.reshape(B, T, nh, hd).contiguous()
+    heads = lambda t: constrain(
+        split_heads(t, (B, T, nh, hd)).contiguous(), ("dp", None, "tp", None))
     y, hT = ops.ssd(heads(decay), heads(k), heads(v), heads(r), u=p["u"],
                     h0=h0, chunk=min(chunk, T), include_current=False)
     y = y.reshape(B, T, D) * g

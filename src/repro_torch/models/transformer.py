@@ -16,6 +16,12 @@ whose backward is one ``stack``.  One code path per family:
     applied after every full group of ``attn_every`` layers
     (`_hybrid_group_ids`).
 
+On a mesh (`repro_torch.distributed.sharding`) the same code runs on
+DTensors: the reference's activation hints (`constrain`,
+`constrain_heads`) pin the embeddings, heads, MLP width and logits; each
+block gathers its FSDP weights and settles the residual stream; the
+lookup and the LM head's cross entropy run vocab-parallel.
+
 The vlm / audio frontends are stubs, as in the reference: the entry points
 take integer tokens [B, S] or precomputed embeddings [B, S, D] (decode:
 [B] or [B, D]).  Prefill runs each attention through the flash kernel and
@@ -30,6 +36,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain, settle
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
@@ -89,13 +97,16 @@ def _embed_in(p: Params, cfg: ArchConfig, tokens_or_embeds):
     frontend's embeddings, cast to the parameter dtype."""
     if tokens_or_embeds.is_floating_point():
         x = tokens_or_embeds.to(param_dtype(cfg))
+    elif sharding.is_distributed(p["embed"]):
+        x = sharding.vocab_parallel_embedding(
+            sharding.gather_dp(p["embed"]), tokens_or_embeds)
     else:
         x = p["embed"][tokens_or_embeds]
     if cfg.mlp == "geglu":                        # gemma-style √d scaling
         # √d rounded to the activations' dtype first, as the reference
         # does, on the host: a device scalar would cost a copy and a sync
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
-    return x
+    return constrain(x, ("dp", None, None))
 
 
 def _logits(p: Params, cfg: ArchConfig, x):
@@ -115,35 +126,42 @@ def _hybrid_group_ids(cfg: ArchConfig) -> list[int]:
 
 
 def _shared_block(p: Params, cfg: ArchConfig, x, positions):
+    p = sharding.gather_dp({k: p[k] for k in (
+        "shared_attn_norm", "shared_attn", "shared_mlp_norm", "shared_mlp")})
     h = rms_norm(x, p["shared_attn_norm"], cfg.norm_eps)
     a, kv = attn.gqa_forward(p["shared_attn"], h, cfg, positions)
-    x = x + a
+    x = settle(x + a)
     h = rms_norm(x, p["shared_mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(p["shared_mlp"], h, cfg.mlp), kv
+    return settle(x + mlp_apply(p["shared_mlp"], h, cfg.mlp)), kv
 
 
 def _attn_block(bp: Params, cfg: ArchConfig, x, positions):
     """Norm → GQA / MLA attention → norm → MLP / MoE.  Returns (x, the
-    layer's cache entries, MoE aux or None)."""
+    layer's cache entries, MoE aux or None).  On a mesh the block's
+    weights are gathered over the DP axes first (FSDP), inside the block,
+    so a rematerialised block gathers them again in its backward, and the
+    residual stream is settled after each add (`sharding.settle`)."""
+    bp = sharding.gather_dp(bp)
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     fwd = attn.mla_forward if cfg.mla_kv_lora else attn.gqa_forward
     a, kv = fwd(bp["attn"], h, cfg, positions)
-    x = x + a
+    x = settle(x + a)
     h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
     if "moe" in bp:
         m, aux = moe_apply(bp["moe"], h, cfg)
     else:
         m, aux = mlp_apply(bp["mlp"], h, cfg.mlp), None
-    return x + m, kv, aux
+    return settle(x + m), kv, aux
 
 
 def _rwkv_block(bp: Params, cfg: ArchConfig, x):
+    bp = sharding.gather_dp(bp)
     h = rms_norm(x, bp["tm_norm"], cfg.norm_eps)
     y, (hT, x_last_t) = ssm.rwkv6_time_mix(bp["tm"], h, cfg)
-    x = x + y
+    x = settle(x + y)
     h = rms_norm(x, bp["cm_norm"], cfg.norm_eps)
     y, x_last_c = ssm.rwkv6_channel_mix(bp["tm"], h)
-    return x + y, (hT, x_last_t, x_last_c)
+    return settle(x + y), (hT, x_last_t, x_last_c)
 
 
 def _stack(states: list) -> tuple:
@@ -152,9 +170,10 @@ def _stack(states: list) -> tuple:
 
 
 def _mamba_layer(bp: Params, cfg: ArchConfig, x):
+    bp = sharding.gather_dp(bp)
     h = rms_norm(x, bp["mamba_norm"], cfg.norm_eps)
     y, st = ssm.mamba2_forward(bp["mamba"], h, cfg)
-    return x + y, st
+    return settle(x + y), st
 
 
 def _trunk(p: Params, cfg: ArchConfig, tokens, collect_cache: bool,
@@ -224,8 +243,12 @@ def _hidden(p: Params, cfg: ArchConfig, tokens, *, remat: bool = False):
 
 def _chunk_nll(x, labels, head):
     """Σ (logsumexp − gold logit) over one slice of positions, logits in
-    f32."""
-    logits = (x @ head).float()
+    f32.  On a mesh the logits keep the vocabulary split over "tp" and the
+    sum runs vocab-parallel (`sharding.vocab_parallel_nll`): no rank
+    gathers a logits slice."""
+    logits = constrain((x @ head).float(), ("dp", None, "tp"))
+    if sharding.is_distributed(logits):
+        return sharding.vocab_parallel_nll(logits, labels)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (torch.logsumexp(logits, -1) - gold).sum()
 
@@ -244,7 +267,8 @@ def loss_fn(p: Params, cfg: ArchConfig, tokens, labels, *,
     """
     x, aux = _hidden(p, cfg, tokens, remat=remat)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    head = sharding.gather_dp(
+        p["embed"].T if cfg.tie_embeddings else p["lm_head"])
     B, S, _ = x.shape
     ck = min(seq_chunk, S)
     while S % ck:
@@ -253,7 +277,8 @@ def loss_fn(p: Params, cfg: ArchConfig, tokens, labels, *,
     for c0 in range(0, S, ck):
         total = total + _remat(_chunk_nll, x[:, c0:c0 + ck],
                                labels[:, c0:c0 + ck], head)
-    nll = total / (B * S)
+    nll = sharding.replicate(total / (B * S))
+    aux = sharding.replicate(aux)
     return nll + moe_aux_weight * aux, {"nll": nll, "moe_aux": aux}
 
 

@@ -16,6 +16,12 @@ Gemma-2B's 2.51 B parameters a second copy of the f32 moments would cost
 rate are 0-dim f32 tensors on the host (the reference keeps them on the
 device): reading them costs no device synchronisation, and a 0-dim host
 tensor enters a device op as a scalar.
+
+On a mesh (`repro_torch.distributed.sharding`) the leaves are DTensors:
+the moments take their parameters' placements, each update runs on every
+rank's own shard, and the global norm is a replicated scalar (one small
+reduction a sharded leaf).  Run it under `sharding.axis_env`, which lets
+the host scalars meet the DTensors as replicated values.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
+from repro_torch.distributed.sharding import replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +55,10 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero f32 moments beside each parameter leaf, count 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero f32 moments beside each parameter leaf (placed as the leaf
+    on a mesh), count 0."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
     leaves = tree_leaves(params)
     return AdamWState(m=tree_unflatten(params, [zeros(p) for p in leaves]),
                       v=tree_unflatten(params, [zeros(p) for p in leaves]),
@@ -75,9 +83,10 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), in f32 (0-dim, on the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """√(Σ over leaves of Σ x²), in f32 (0-dim, on the leaves' device;
+    a replicated DTensor on a mesh)."""
+    return torch.sqrt(replicate(sum(torch.sum(torch.square(x.float()))
+                                    for x in tree_leaves(tree))))
 
 
 def adamw_update(grads, state: AdamWState, params,

@@ -38,6 +38,7 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "scripts" / "flash_variants.py",
     ROOT / "scripts" / "ssd_bwd_code_size.py",
     ROOT / "scripts" / "collective_probe.py",
+    ROOT / "scripts" / "train_loss_bits.py",
     ROOT / "examples" / "torch_broadcast_step.py",
     ROOT / "examples" / "torch_train_100m.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,6 +46,19 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+KERNEL_MODULES = sorted(p for p in (ROOT / "src" / "repro_torch" / "kernels"
+                                    ).glob("*.py") if p.name != "ops.py")
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES, ids=lambda p: p.name)
+def test_kernel_modules_know_nothing_of_the_mesh(path):
+    """The kernel modules take plain tensors: the mesh's local route lives
+    in the dispatcher (`kernels/ops.py`) and `distributed/sharding.py`."""
+    mods = _imported_modules(path)
+    assert not any(m.startswith(("repro_torch.distributed",
+                                 "torch.distributed")) for m in mods), mods
 
 
 def test_port_has_every_module_of_the_slice():
@@ -74,7 +88,8 @@ def test_port_has_every_module_of_the_slice():
                 "optim/adamw.py", "data/__init__.py", "data/pipeline.py",
                 "launch/train.py", "distributed/sharding.py",
                 "fleet/backends/sharded.py",
-                "fleet/backends/sharded_fused.py"):
+                "fleet/backends/sharded_fused.py", "launch/mesh.py",
+                "optim/compression.py"):
         assert mod in names, mod
     for src in ("fleet_step.cu", "thermal_conv.cu", "grid_conv.cu",
                 "flash_attention.cu", "flash_attention_tc.cu", "ssd.cu",

@@ -378,9 +378,10 @@ import os, sys, time
 from repro_torch.distributed import multihost
 multihost.bootstrap_from_env()
 print("rank", os.environ["REPRO_PROCESS_ID"], "up", flush=True)
+import torch, torch.distributed as dist
+dist.barrier()                             # both ranks have printed
 if os.environ["REPRO_PROCESS_ID"] == "1":
     sys.exit(3)
-import torch, torch.distributed as dist
 dist.all_reduce(torch.zeros(1))            # waits for rank 1 forever
 """
     with pytest.raises(RuntimeError, match="a rank failed") as exc:
