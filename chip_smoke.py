@@ -123,10 +123,10 @@ Phase J  the resident fleet control plane (PR 18).  (a) `fma_f32.cu` against
          and the two-rounding f64 form, with its launches in one
          broadcast-fleet step.  (b) `FleetService(SchedulerConfig(n_tiles=
          47, mixed_mode=True), backend="fused", flush_every=256)` warmed to
-         8,192 packages, 4,096 packages attached over four tenants (one per
+         2,048 packages, 1,024 packages attached over four tenants (one per
          workload kind), six flushes with an attach that grows the capacity
-         to 8,192, a canary(0.25), a threshold edit, an `ingest` chunk, a
-         snapshot, and 2,049 detaches that shrink it back to 4,096: every
+         to 2,048, a canary(0.25), a threshold edit, an `ingest` chunk, a
+         snapshot, and 513 detaches that shrink it back to 1,024: every
          flush one `fleet_step` launch and the synchronizing calls of ONE
          device→host copy (sync debug mode), held to a broadcast service
          stepping the same chunk from the same state, and bit-equal to a
@@ -134,7 +134,7 @@ Phase J  the resident fleet control plane (PR 18).  (a) `fma_f32.cu` against
          (the per-tenant sums run in a fixed order); `FleetService.restore`
          vs the uninterrupted service ≤1e-5; no kernel library built or
          loaded after warmup; per-flush host ms by stage.  (c)
-         `GroupedFleetEngine` (pole and ROM groups of 1,024 on the kernel,
+         `GroupedFleetEngine` (pole and ROM groups of 256 on the kernel,
          16 grid lanes per step, 47 tiles, node banks and pins) bit for bit
          against per-group oracles.  (d) `serve --serve --fleet-backend fused
          --serve-flushes 4 --port 0 --fleet 0` as a process, driven over
@@ -210,7 +210,7 @@ Phase L  training.  (a) `flash_attention_stats` (each
          tensor-core forward and bf16 activations through 18 layers and
          their recompute).  (c) The same in f32 at 2 layers (the CUDA-core
          route): each leaf within 1e-4.  (d) `repro_torch.launch.train
-         --arch gemma-2b --batch 8 --seq 1024 --steps 6` in process:
+         --arch gemma-2b --batch 8 --seq 1024 --steps 4` in process:
          finite losses, exactly 36 forward and 18 backward launches a
          step, all on the tensor-core route, the warm step time, tok/s, peak device memory, and a
          profiled warm step (device time by group: flash forward, flash
@@ -236,7 +236,7 @@ Phase L  training.  (a) `flash_attention_stats` (each
          the f32 CUDA-core bound beside it; no library call computes it),
          with each pass's device time (torch.profiler), the kernel's one
          route and each pass's shared bytes and resident blocks an SM.  (g) RWKV6-1.6B at full depth and Zamba2-7B
-         with its depth cut (ZAMBA2_TRAIN_LAYERS) in bf16: the loss on the
+         with its depth cut (ZAMBA2_GRAD_LAYERS) in bf16: the loss on the
          kernels against FlashAttention and SsdFunction on their plain
          branches within 1e-3, and the launches (the gradients' gap is
          printed: at this depth bf16 rounding alone moves them by up to
@@ -245,7 +245,7 @@ Phase L  training.  (a) `flash_attention_stats` (each
          at the same depth (RWKV6's 24 layers, the Zamba2 cut) within 1e-3
          of its largest magnitude.  (h) `repro_torch.launch.train --arch
          rwkv6-1.6b` and `--arch zamba2-7b` (the same cut) --batch 8 --seq 1024
-         --steps 6 in process: finite losses, exactly 2 ssd forward and 1
+         --steps 4 in process: finite losses, exactly 2 ssd forward and 1
          backward launches a layer a step (and Zamba2's shared block 1
          flash forward and 1 backward an application, on the tensor-core
          route), the warm step, tok/s, peak device memory and a profiled
@@ -304,6 +304,23 @@ Phase N  the fleet across processes (`repro_torch.distributed.multihost`;
          within the gates of Phase C's, flush lines from rank 0 alone.  A
          rank that fails ends the group and the script, non-zero.
 
+Phase O  training on a (pod, data, model) mesh of gloo ranks on the card
+         (`phase_o`): Gemma-2B at full width and depth on (data 1, model
+         2) against its one-device step, its collectives counted by
+         `launch.hlo_census` (output bytes a rank) and its peak device
+         memory; the reduced families on (data 2, model 2); the compressed
+         all-reduce; the kernels at the mesh's local shapes.
+
+Phase P  the dry run (`launch.dryrun`, in a child process that owns a fake
+         process group): (a) gemma-2b × train_4k on 16×16 and × decode_32k
+         on 2×16×16 on "cuda" fake tensors; (b) Phase O's Gemma-2B step on
+         a fake group of its two ranks — its census equal to Phase O's
+         measured one by kind in count and bytes, its predicted peak within
+         10 % of Phase O's measured peak; (c) each kernel's shape rule
+         against the kernel at the local shapes (a) and Phase O met (shape,
+         dtype, stride); (d) the roofline of Phase L's one-device step
+         beside its warm step.  Each phase prints its seconds ([time]).
+
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -322,15 +339,21 @@ from pathlib import Path
 from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the
-# tensor cores (the rates assume the full 700 W power limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# bf16 on the tensor cores: the least time for work whose inputs are bf16
-PEAK_BF16_PER_S = 989e12
-# TF32 on the tensor cores (dense); an f32 product split into three TF32
-# products (the ssd backward's 3×TF32) runs at a third of it
-PEAK_TF32_PER_S = 495e12
+sys.path.insert(0, str(ROOT / "src"))
+# the NVIDIA H100 SXM's data-sheet rates (`launch/roofline.py`): HBM3
+# bandwidth, f32 outside the tensor cores, bf16 on the tensor cores (the
+# least time for work whose inputs are bf16) and dense TF32 (an f32
+# product split into three TF32 products, the ssd backward's 3×TF32, runs
+# at a third of it)
+try:
+    from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_F32_FLOPS as PEAK_F32_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS as PEAK_BF16_PER_S
+    from repro_torch.launch.roofline import \
+        PEAK_TF32_FLOPS as PEAK_TF32_PER_S
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: FAIL: {e}: run from a checkout of the "
+                     f"repository") from None
 # dependent-issue latencies ASSUMED (not measured) for the estimate of the
 # grid recurrence's dependence floor, printed beside its times but not in
 # the kernels line: an f32 add or multiply, and a warp shuffle, in SM cycles;
@@ -544,13 +567,13 @@ def main() -> None:
     if not (kernel_src / "fleet_step.cu").is_file():
         fail(f"no kernel sources under {kernel_src}: run from a checkout "
              f"of the repository")
-    sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     from repro_torch.core.density import rtok_from_rho
     from repro_torch.core.scheduler import SchedulerConfig
@@ -572,8 +595,10 @@ def main() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = list(pool.map(_build.build, KERNELS))
+    seconds = {"0": time.perf_counter() - t_start}
     print(f"[phase0] built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    print(f"[time] phase 0 {seconds['0']:.1f} s")
 
     def compare(out, ref, where: str) -> float:
         """Kernel outputs vs plain outputs: max abs error of the float
@@ -771,19 +796,33 @@ def main() -> None:
           f"redesign), bound {b_ms:.4f} ms by {b_by}; "
           f"{registers('fleet_step', 'ILi1ELb0E')}")
 
-    mesh_entry = phase_m(dev, trace, flushed, state, res)
-    proc_entry = phase_n(dev, flushed, state, res,
-                         mesh_entry["ms_per_flush_mesh"]["fused"])
-    mc_entry = phase_i(dev, compare)
-    tc_entry = phase_d(dev)
-    gc_entry = phase_e(dev)
-    phase_f(dev, trace[peak * flush:(peak + 1) * flush])
-    fa_entry, ssd_entry = phase_g(dev)
-    phase_h(dev, fa_entry, ssd_entry)
-    phase_k(dev, fa_entry, ssd_entry)
-    fma_entry = phase_j(dev)
-    fb_entries = phase_l(dev)
-    mesh_entries = phase_o(dev, GEMMA_LOSS)
+    seconds["A-C"] = time.perf_counter() - t_start - seconds["0"]
+    print(f"[time] phases A-C {seconds['A-C']:.1f} s")
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"[time] phase {name} {seconds[name]:.1f} s")
+        return out
+
+    mesh_entry = run("M", phase_m, dev, trace, flushed, state, res)
+    proc_entry = run("N", phase_n, dev, flushed, state, res,
+                     mesh_entry["ms_per_flush_mesh"]["fused"])
+    mc_entry = run("I", phase_i, dev, compare)
+    tc_entry = run("D", phase_d, dev)
+    gc_entry = run("E", phase_e, dev)
+    run("F", phase_f, dev, trace[peak * flush:(peak + 1) * flush])
+    fa_entry, ssd_entry = run("G", phase_g, dev)
+    run("H", phase_h, dev, fa_entry, ssd_entry)
+    run("K", phase_k, dev, fa_entry, ssd_entry)
+    fma_entry = run("J", phase_j, dev)
+    fb_entries = run("L", phase_l, dev)
+    mesh_entries = run("O", phase_o, dev, GEMMA_LOSS)
+    run("P", phase_p, dev)
+    print(f"[time] phases " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()})
+        + f"; the whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fleet_step",
@@ -2410,9 +2449,9 @@ def phase_k(dev, fa_entry: dict, ssd_entry: dict) -> None:
 # Phase J: the resident control plane at cell B's width — the service's
 # config, warmup horizon, packages (four tenants, one per workload kind)
 # and flush window; the grouped fleet's groups; serve --serve's argv
-SVC_TILES, SVC_PACKAGES, SVC_WARM, SVC_FLUSH = 47, 4096, 8192, 256
+SVC_TILES, SVC_PACKAGES, SVC_WARM, SVC_FLUSH = 47, 1024, 2048, 256
 SVC_TENANTS = ("acme", "zeta", "orion", "vega")
-GROUP_COUNTS = {"pole": 1024, "rom": 1024, "grid": 16}
+GROUP_COUNTS = {"pole": 256, "rom": 256, "grid": 16}
 SERVE_SERVE_ARGV = ["--serve", "--fleet-backend", "fused",
                     "--serve-flushes", "4", "--port", "0", "--fleet", "0"]
 CHAOS_ARGV = ["--chaos"]
@@ -2665,7 +2704,7 @@ def phase_j(dev) -> dict:
     tick()
     for s in (svc, oracle, twin):          # n + 1 packages: grow to 2n
         plan = s.attach("extra", "acme", "training")["plan"]
-        check(plan == "grow", f"attach past 4,096: plan {plan}")
+        check(plan == "grow", f"attach past {n}: plan {plan}")
     tick()
     feed = np.full((SVC_FLUSH, nt), 2.6, np.float32)
     for s in (svc, oracle, twin):
@@ -2889,9 +2928,9 @@ GEMMA_LOSS = None      # Phase L (b)'s one-device Gemma-2B loss, for Phase O
 TRAIN_F32_TOL = 1e-4
 TRAIN_ARGV = ["--arch", "gemma-2b", "--batch", "8", "--seq", "1024",
               "--log-every", "1"]
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 CKPT_LAYERS = 1
-EXAMPLE_ARGV = ["--steps", "40"]
+EXAMPLE_ARGV = ["--steps", "20"]
 # Phase L (f): the ssd backward against its plain version — (name, B, T, H,
 # N, P, dtypes of d, b, x, c, include_current, u, h0, dhT, lowest decay):
 # Zamba2-7B's and RWKV6-1.6B's training shapes in their bf16 runs' types,
@@ -2918,6 +2957,10 @@ SSD_BWD_PASSES = {"state_grad_kernel": "A", "chunk_grad_kernel": "B",
 # 3,584, 14,336] in_proj leaf: scripts/ssd_train_limits.py)
 ZAMBA2_TRAIN_LAYERS = 36
 SSD_TRAIN = (("rwkv6-1.6b", None), ("zamba2-7b", ZAMBA2_TRAIN_LAYERS))
+# Phase L (g)'s depth for Zamba2-7B, cut from ZAMBA2_TRAIN_LAYERS for chip
+# time: two shared-block groups (scripts/ssd_train_limits.py's depth)
+ZAMBA2_GRAD_LAYERS = 12
+SSD_GRAD = (("rwkv6-1.6b", None), ("zamba2-7b", ZAMBA2_GRAD_LAYERS))
 
 
 @contextlib.contextmanager
@@ -3314,6 +3357,8 @@ def phase_l(dev) -> list:
     bwd_main = bwd["tensor_core"]
     check(len(res["losses"]) == n and all(np.isfinite(res["losses"])),
           f"train: losses {res['losses']}")
+    global GEMMA_STEP_MS
+    GEMMA_STEP_MS = res["warm_step_ms"]
     print(f"[phaseL] python -m repro_torch.launch.train {' '.join(argv)} "
           f"(bf16, full width and depth): losses "
           f"{json.dumps([round(x, 4) for x in res['losses']])}; warm step "
@@ -3620,7 +3665,7 @@ def phase_l_ssd(dev) -> dict:
     # that run every block kind (RWKV6: 2; Zamba2: one shared-block
     # application, attn_every layers) and at the bf16 run's depth
     torch.backends.cuda.matmul.allow_tf32 = False
-    for arch, layers in SSD_TRAIN:
+    for arch, layers in SSD_GRAD:
         full = get_arch(arch)
         cfg_s = dataclasses.replace(full, n_layers=layers or full.n_layers)
         toks, labs = train_batch(dev, cfg_s, 23)
@@ -4368,7 +4413,7 @@ def phase_n(dev, b_flushed, b_state, c_res, fused_ms: float) -> dict:
 # width and depth on (data 1, model 2): tensor parallelism, half of every
 # weight, moment and the vocabulary a rank
 MESH_TP = (1, 2)
-MESH_WARM_STEPS = 3
+MESH_WARM_STEPS = 2
 MESH_TILES = 8
 # (b) the reduced families on a 4-rank (data 2, model 2) mesh, f32: (arch,
 # widths, tp_attention, batch, seq); mixtral in the EP-only mode (its 4
@@ -4412,13 +4457,13 @@ from repro_torch.distributed import multihost
 multihost.bootstrap_from_env()
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor.debug import CommDebugMode
 import chip_smoke as cs
 from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
 from repro_torch.configs import get_arch, reduced
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssm_scan as sm
+from repro_torch.launch import hlo_census as HC
 from repro_torch.launch import mesh as M
 from repro_torch.launch import steps as S
 from repro_torch.models import transformer as tf
@@ -4494,41 +4539,6 @@ def hold_captured():
     return out
 
 
-# every collective the ranks issue, counted where DTensor and the port
-# call them (`torch.distributed._functional_collectives`, and
-# `torch.distributed.all_reduce` in the LM head's cross entropy): count,
-# bytes handed to it (its local input), and the local shape of every
-# all-gather; the outermost call only, where one calls another
-import torch.distributed._functional_collectives as funcol
-KINDS = collections.defaultdict(lambda: [0, 0])
-GATHERS = []
-RECORD = [False, 0]
-
-
-def counted(kind, fn):
-    @functools.wraps(fn)
-    def wrapped(t, *a, **k):
-        if RECORD[0] and RECORD[1] == 0:
-            KINDS[kind][0] += 1
-            KINDS[kind][1] += t.numel() * t.element_size()
-            if kind == "all_gather":
-                GATHERS.append(list(t.shape))
-        RECORD[1] += 1
-        try:
-            return fn(t, *a, **k)
-        finally:
-            RECORD[1] -= 1
-    return wrapped
-
-
-for attr in dir(funcol):
-    for kind in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all"):
-        if (attr.startswith(kind) and "coalesced" not in attr
-                and callable(getattr(funcol, attr))):
-            setattr(funcol, attr, counted(kind, getattr(funcol, attr)))
-dist.all_reduce = counted("all_reduce", dist.all_reduce)
-
-
 def launches():
     return {"flash": dict(fa.flash_attention.launches_by_route),
             "flash_bwd": dict(fa.flash_attention_backward.launches_by_route),
@@ -4600,30 +4610,30 @@ with shd.axis_env(mesh):
     shd.CUDA_GATHERS = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    comm = CommDebugMode()
+    # the collectives of the first step, as they are dispatched: the
+    # census's own cost stays out of the warm steps that are timed
+    census = HC.Census()
     ms, losses = [], []
     for i in range(1 + %(warm)d):
-        RECORD[0] = i == 1
-        with (comm if i == 1 else contextlib.nullcontext()):
+        with (census if i == 0 else contextlib.nullcontext()):
             sync()
             t0 = time.perf_counter()
             state, m = step(state, batch)
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
-        RECORD[0] = False
         losses.append(float(shd.full(m["loss"])))
-peak = (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
-        else None)
+peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+census = census.result()
 print("RESULT " + json.dumps({
     "rank": rank, "loss_one_device": float(loss1), "loss_mesh": loss2,
     "worst_leaf": worst, "one_launches": one_launches,
     "grad_launches": grad_launches, "grads_s": grads_s,
     "train_launches": launches(), "steps": 1 + %(warm)d,
     "shapes": {f"{k} {s}": n for (k, s), n in SHAPES.items()},
-    "step_ms": ms, "losses": losses, "peak_gib": peak,
-    "collectives": dict(KINDS),
-    "comm_counts": {str(k): v for k, v in comm.get_comm_counts().items()},
-    "gathers": GATHERS,
+    "step_ms": ms, "losses": losses, "peak_bytes": peak,
+    "census": {k: census[k] for k in ("counts", "by_kind", "total_bytes")},
+    "gathers": [op["shape"][0] for op in census["ops"]
+                if op["kind"] == "all-gather"],
     "cuda_gathers_per_step": shd.CUDA_GATHERS / (1 + %(warm)d)}))
 """
 
@@ -4844,8 +4854,9 @@ def phase_o(dev, l_loss: float | None) -> list:
               f"{r['worst_leaf']:.3e} of its largest magnitude")
         check(all(x == x and abs(x) < 1e4 for x in r["losses"]),
               f"phase O (a): losses {r['losses']}")
-        big = [s for s in r["gathers"]
-               if V_local in s and math.prod(s) >= logits_slice]
+        big = [s for s in r["gathers"] if (V_local in s or cfg.vocab_size
+                                               in s)
+               and math.prod(s) >= logits_slice]
         check(not big, f"phase O (a) rank {r['rank']}: all-gathers of a "
               f"logits slice {big}")
         if dev.type == "cuda":
@@ -4878,17 +4889,21 @@ def phase_o(dev, l_loss: float | None) -> list:
               f"{json.dumps([round(x, 1) for x in r['step_ms']])} (warm "
               f"median {float(np.median(r['step_ms'][1:])):.1f}, host clock "
               f"after a synchronize); peak device memory "
-              + (f"{r['peak_gib']:.2f} GiB" if r["peak_gib"] is not None
+              + (f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['peak_bytes']} "
+                 f"bytes)" if r["peak_bytes"] is not None
                  else "not measured")
               + f"; launches in {steps} steps "
               f"{json.dumps(r['train_launches'])}"
               f" at the local shapes {json.dumps(r['shapes'])}; routed "
               f"all-gathers a step {r['cuda_gathers_per_step']:.1f}")
-        print(f"[phaseO] (a) rank {r['rank']}: collectives of one warm step "
-              f"by kind [count, bytes]: {json.dumps(r['collectives'])}; "
-              f"CommDebugMode: {json.dumps(r['comm_counts'])}; no all-gather "
-              f"of a logits slice [{Bg // MESH_TP[0]}, {min(512, Tg)}, "
-              f"{V_local}]")
+        c = r["census"]
+        print(f"[phaseO] (a) rank {r['rank']}: collectives of the first step "
+              f"by kind [count, output bytes] (`hlo_census`): "
+              + json.dumps({k: [c["counts"][k], c["by_kind"][k]]
+                            for k in c["counts"]})
+              + f"; no all-gather of a logits slice [{Bg // MESH_TP[0]}, "
+              f"{min(512, Tg)}, {V_local}]")
+    MESH_O.update(census=ra[0]["census"], peak_bytes=ra[0]["peak_bytes"])
     # ---- (b), (c): the reduced families and the compressed all-reduce
     t0 = time.perf_counter()
     rb = rank_results(multihost.run_process_group(
@@ -5079,7 +5094,8 @@ def phase_o(dev, l_loss: float | None) -> list:
          "replaces": "src/repro/kernels/flash_attention.py:94",
          "launches": tc_launch, **pair_tc["fwd"], "shape": shape_a,
          "warm_step_ms_mesh": warm, "peak_gib_mesh": [
-             r["peak_gib"] for r in ra]},
+             None if r["peak_bytes"] is None else r["peak_bytes"] / 2**30
+             for r in ra]},
         {"name": "flash_attention_bwd_tc_mesh", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
          "replaces": "src/repro/kernels/ref.py:201",
@@ -5111,6 +5127,209 @@ def phase_o(dev, l_loss: float | None) -> list:
          "bound_by": sb_by, "library_ms": None,
          "max_rel_err_mesh_inputs": held_rel.get("ssd_bwd"),
          "shape": shape_r}]
+
+
+# Phase P: the dry run (step 11).  (a) two production cells on "cuda" fake
+# tensors; (b) Phase O (a)'s own step on a fake group of its ranks, held to
+# what Phase O measured; the predicted peak within DRY_PEAK_TOL of it
+DRY_CELLS = (("gemma-2b", "train_4k", False), ("gemma-2b", "decode_32k",
+                                                True))
+DRY_PEAK_TOL = 0.10
+MESH_O = {}             # Phase O (a) rank 0's census and peak, for Phase P
+GEMMA_STEP_MS = None    # Phase L (d)'s warm one-device step, for Phase P
+
+DRY_WORKER = r"""
+import dataclasses, json, sys, time
+sys.path.insert(0, %(src)r)
+import torch
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_test_mesh
+
+out = {"cells": []}
+for arch, shape, multi in %(cells)r:
+    with D.fake_group(512 if multi else 256):
+        out["cells"].append(D.run_cell(arch, shape, multi,
+                                       device=%(device)r))
+cfg = dataclasses.replace(get_arch("gemma-2b"), **%(gemma)r)
+with D.fake_group(%(ranks)d):
+    mesh = make_test_mesh(*%(mesh)r, device_type=%(device)r)
+    t0 = time.perf_counter()
+    cell = D.build_cell(cfg, ShapeConfig("phase_o", %(seq)d, %(batch)d,
+                                         "train"),
+                        mesh, n_tiles=%(tiles)d, device=%(device)r)
+    out["phase_o"] = D.record(cell, time.perf_counter() - t0)
+print("RESULT " + json.dumps(out))
+"""
+
+
+def replay(op, sig, dev):
+    """One kernel op on real tensors of a recorded signature (a tensor as
+    [shape, dtype], drawn in [0.5, 1): a valid decay, a finite attention)
+    and on fake tensors of the same: each output's shape, dtype and
+    stride from the kernel and from the shape rule."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    real = [0.5 + 0.5 * torch.rand(a[0], generator=gen, device=dev).to(
+        getattr(torch, a[1])) if isinstance(a, list) and len(a) == 2
+        and isinstance(a[1], str) else a for a in sig]
+    got = op(*real)
+    torch.cuda.synchronize()
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) if torch.is_tensor(a) else a
+                for a in real]
+        want = op(*fake)
+    meta = lambda ts: [(tuple(t.shape), t.dtype, t.stride()) for t in
+                       (ts if isinstance(ts, (tuple, list)) else (ts,))]
+    return meta(got), meta(want)
+
+
+def phase_p(dev) -> None:
+    """The dry run (`repro_torch.launch.dryrun`) on the card's machine, in
+    a child process that owns the fake process group: (a) the production
+    cells of DRY_CELLS on "cuda" fake tensors, each record printed; (b)
+    Phase O (a)'s Gemma-2B step on a fake group of its two ranks — rank
+    0's census equal to the one Phase O (a) measured, by kind in count and
+    bytes, and the predicted peak within DRY_PEAK_TOL of Phase O (a)'s
+    ``max_memory_allocated``; (c) each kernel's shape rule against the
+    kernel: the outputs' shapes, dtypes and strides equal at the local
+    shapes (a)'s train cell and Phase O met (both flash routes); (d) the
+    roofline of Phase L's one-device Gemma-2B step beside its measured
+    warm step (no gate)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import roofline
+
+    t_phase = time.perf_counter()
+    arg = lambda k: int(TRAIN_ARGV[TRAIN_ARGV.index(k) + 1])
+    script = DRY_WORKER % {
+        "src": str(ROOT / "src"), "cells": DRY_CELLS, "device": dev.type,
+        "gemma": MESH_GEMMA, "ranks": MESH_TP[0] * MESH_TP[1],
+        "mesh": MESH_TP, "seq": arg("--seq"), "batch": arg("--batch"),
+        "tiles": MESH_TILES}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1, "phase P: the dry run "
+          f"failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    out = json.loads(lines[0][len("RESULT "):])
+    # ---- (a) the production cells
+    for rec in out["cells"]:
+        check(rec["ok"], f"phase P (a): {rec}")
+        m, c, r = rec["memory"], rec["collectives"], rec["roofline"]
+        print(f"[phaseP] (a) {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+              f"on {rec['device']} fake tensors: argument "
+              f"{m['argument_bytes'] / 2**30:.3f} GiB, peak "
+              f"{m['peak_bytes'] / 2**30:.3f} GiB, output "
+              f"{m['output_bytes'] / 2**30:.3f} GiB a rank; "
+              f"{rec['flops']:.4e} flops a rank; collectives a rank "
+              f"[count, bytes] " + json.dumps(
+                  {k: [c["counts"][k], c["by_kind"][k]] for k in c["counts"]})
+              + f"; roofline compute {r['t_compute_s']:.4g} s, memory "
+              f"{r['t_memory_s']:.4g} s, collective "
+              f"{r['t_collective_s']:.4g} s ({r['bottleneck']}), analytic "
+              f"{r['per_chip_hbm_gb']:.2f} GB a chip; lower "
+              f"{rec['lower_s']} s, run {rec['run_s']} s")
+    # ---- (b) Phase O (a)'s step, predicted against measured
+    po = out["phase_o"]
+    pc, mc = po["collectives"], MESH_O["census"]
+    check(pc["counts"] == mc["counts"] and pc["by_kind"] == mc["by_kind"],
+          f"phase P (b): the dry run's census {pc['counts']} "
+          f"{pc['by_kind']} differs from Phase O's measured {mc['counts']} "
+          f"{mc['by_kind']}")
+    pred, meas = po["memory"]["peak_bytes"], MESH_O["peak_bytes"]
+    rel = abs(pred - meas) / meas
+    check(rel <= DRY_PEAK_TOL, f"phase P (b): predicted peak {pred} bytes, "
+          f"Phase O measured {meas} ({rel:.3f} apart)")
+    print(f"[phaseP] (b) Phase O (a)'s step (Gemma-2B, bf16, batch "
+          f"{arg('--batch')} x {arg('--seq')}, data {MESH_TP[0]} x model "
+          f"{MESH_TP[1]}) on a fake group: census by kind [count, bytes] "
+          + json.dumps({k: [pc["counts"][k], pc["by_kind"][k]]
+                        for k in pc["counts"]})
+          + f" equal to Phase O's measured rank 0; predicted peak "
+          f"{pred / 2**30:.3f} GiB (argument "
+          f"{po['memory']['argument_bytes'] / 2**30:.3f}) against measured "
+          f"{meas / 2**30:.3f} GiB ({rel:.4f} apart, bound {DRY_PEAK_TOL}); "
+          f"{po['flops']:.4e} flops a rank")
+    # ---- (c) every shape rule against its kernel
+    ops = torch.ops.repro_torch
+    sigs = {}
+    for rec in (out["cells"][0], po):
+        for name, calls in rec["collectives"]["kernels"].items():
+            for sig in calls:
+                sigs.setdefault(name.split(".")[-1], []).append(sig)
+    # O (b)'s granite flash pair on the CUDA-core route (f32)
+    gcfg = mesh_small_config("granite-3-2b")
+    case = next(c for c in MESH_SMALL_CASES if c[0] == "granite-3-2b")
+    gB, gT = case[3] // MESH_SMALL[0], case[4]
+    gH, gKV = gcfg.n_heads // MESH_SMALL[1], max(
+        gcfg.n_kv_heads // MESH_SMALL[1], 1)
+    q4 = [[gB, gT, gH, gcfg.head_dim], "float32"]
+    k4 = [[gB, gT, gKV, gcfg.head_dim], "float32"]
+    ml = [[gB, gH, gT], "float32"]
+    fargs = [True, 0, 0, gcfg.head_dim ** -0.5]
+    sigs.setdefault("flash_attention_stats", []).append([q4, k4, k4, *fargs])
+    sigs.setdefault("flash_attention_backward", []).append(
+        [q4, k4, k4, q4, ml, ml, q4, *fargs])
+    for sig in list(sigs.get("flash_attention_stats", [])):
+        sigs.setdefault("flash_attention", []).append(sig)
+    rcfg = mesh_small_config("rwkv6-1.6b")
+    case = next(c for c in MESH_SMALL_CASES if c[0] == "rwkv6-1.6b")
+    sB, sT = case[3] // MESH_SMALL[0], case[4]
+    sN = rcfg.rwkv_head_dim
+    sH = rcfg.d_model // sN // MESH_SMALL[1]
+    t4 = [[sB, sT, sH, sN], "float32"]
+    u, st = [[sH, sN], "float32"], [[sB, sH, sN, sN], "float32"]
+    ck = 64 if sT % 64 == 0 else sT
+    hs = [[sB, sT // ck, sH, sN, sN], "float32"]
+    sigs["ssd"] = [[t4, t4, t4, t4, u, None, ck, False]]
+    sigs["ssd_states"] = [[t4, t4, t4, t4, u, None, ck, False]]
+    sigs["ssd_backward"] = [[t4, t4, t4, t4, u, None, hs, t4, st, ck,
+                             False]]
+    seen = {}
+    for name, calls in sorted(sigs.items()):
+        for sig in calls:
+            got, want = replay(getattr(ops, name), sig, dev)
+            check(got == want, f"phase P (c): {name} at {sig}: the kernel "
+                  f"gives {got}, its shape rule {want}")
+            seen.setdefault(name, []).append(
+                [list(a[0]) for a in sig if isinstance(a, list)
+                 and len(a) == 2 and isinstance(a[1], str)][0])
+    for n_tiles in (MESH_TILES, 256):
+        a = torch.rand(n_tiles, device=dev)
+        with torch.no_grad():
+            real = repro_torch.fma_f32(a, a, 1.5)
+        with FakeTensorMode() as mode:
+            fa_ = mode.from_tensor(a)
+            fake = repro_torch.fma_f32(fa_, fa_, 1.5)
+        check((real.shape, real.dtype, real.stride()) == (
+            fake.shape, fake.dtype, fake.stride()),
+            f"phase P (c): fma_f32 at [{n_tiles}]")
+        seen.setdefault("fma_f32", []).append([n_tiles])
+    print("[phaseP] (c) each shape rule's outputs equal its kernel's in "
+          "shape, dtype and stride, at (first input's shape): "
+          + json.dumps(seen))
+    # ---- (d) the roofline of Phase L's one-device step
+    cfg = mesh_gemma_config()
+    rl = roofline.analytic(cfg, ShapeConfig("phase_l", arg("--seq"),
+                                            arg("--batch"), "train"),
+                           {"data": 1, "model": 1}).as_dict()
+    step = "not measured" if GEMMA_STEP_MS is None else \
+        f"{GEMMA_STEP_MS:.1f} ms"
+    print(f"[phaseP] (d) roofline of Phase L's one-device {cfg.name} step "
+          f"(batch {arg('--batch')} x {arg('--seq')}, bf16): compute "
+          f"{rl['t_compute_s'] * 1e3:.2f} ms, memory "
+          f"{rl['t_memory_s'] * 1e3:.2f} ms, collective "
+          f"{rl['t_collective_s'] * 1e3:.2f} ms ({rl['bottleneck']}-bound); "
+          f"measured warm step {step} (no gate)")
+    print(f"[phaseP] phase P {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -67,7 +67,7 @@ def fma_f32_reference(a, b: torch.Tensor, c) -> torch.Tensor:
     x = (a.double() if torch.is_tensor(a) else a) * b.double()
     s = x + c
     mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    if x.device.type == "cpu" and not bool(mid.any()):
+    if x.device.type == "cpu" and not _is_fake(x) and not bool(mid.any()):
         return s.float()
     t = s - x
     err = (x - (s - t)) + (c - t)
@@ -157,8 +157,14 @@ def fma_f32(a, b: torch.Tensor, c) -> torch.Tensor:
     this launches csrc/fma_f32.cu once (broadcast passed as strides, no
     copies) and counts the launch in ``fma_f32.launches``; on a CPU tensor
     it runs the plain version, `fma_f32_reference`.  A failed build or
-    launch raises.
+    launch raises.  A fake tensor (the dry run) gets an output of the
+    broadcast shape and no arithmetic; on the fleet path the check costs
+    one type comparison.
     """
+    if type(b) is not torch.Tensor and _is_fake(b):
+        # the shape rule (the dry run's fake tensors): no value, no launch
+        return b.new_empty(torch.broadcast_shapes(
+            *(x.shape for x in (a, b, c) if torch.is_tensor(x))))
     if b.device.type == "cpu":
         return fma_f32_reference(a, b, c)
     ta, tc = torch.is_tensor(a), torch.is_tensor(c)
@@ -183,6 +189,13 @@ def fma_f32(a, b: torch.Tensor, c) -> torch.Tensor:
 
 
 fma_f32.launches = 0
+
+
+def _is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a fake tensor (``FakeTensorMode``: a shape, no
+    memory)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
 
 
 def _fma_fn():

@@ -725,6 +725,25 @@ class NamedSharding:
         return placements(self.mesh, self.spec)
 
 
+def new_placed(like, shape, dtype, mesh, spec, value):
+    """A DTensor of global ``shape`` placed on ``mesh`` by ``spec``, every
+    element ``value``: each rank makes only its own shard, with
+    ``like.new_full`` (``like`` a local tensor: its device, and a fake
+    tensor's mode in the dry run).  The spec's shards must divide their
+    dims, as the spec functions' do."""
+    from torch.distributed.tensor import DTensor
+
+    pls = placements(mesh, spec)
+    local = list(shape)
+    for i, p in enumerate(pls):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    t = like.new_full(local, value, dtype=dtype)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, pls, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def to_shardings(mesh, specs):
     """A spec tree as a congruent tree of `NamedSharding`s on ``mesh``."""
     return _zip_specs(lambda _, s: NamedSharding(mesh, s), specs, specs)
@@ -733,12 +752,20 @@ def to_shardings(mesh, specs):
 def distribute_leaf(x, mesh, pls):
     """One tensor as a DTensor with placements ``pls`` on ``mesh``;
     every rank passes the same full value and keeps its own slice (no
-    collective).  A DTensor is redistributed."""
-    from torch.distributed.tensor import distribute_tensor
+    collective), in storage of its own: a slice that is a view of the
+    full value is copied, so the full value is freed with the caller's
+    last reference.  A DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     if is_distributed(x):
         return x.redistribute(mesh, pls)
-    return distribute_tensor(x, mesh, pls, src_data_rank=None)
+    d = distribute_tensor(x, mesh, pls, src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        d = DTensor.from_local(local.clone(), mesh, d.placements,
+                               run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d
 
 
 def distribute(tree, mesh, specs):
@@ -988,6 +1015,45 @@ def split_heads(x, shape):
     return x.reshape(shape)
 
 
+def first_row(x):
+    """``x[0]`` of a tensor whose rows are all equal (a decode cache's
+    positions: every batch row is written at the same slot), as a plain
+    tensor: on a mesh the local shard's first row, with no collective."""
+    return (x.to_local() if is_distributed(x) else x)[0]
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[..., H, dh] → [..., H·dh]; the gradient goes back through
+    `split_heads`, which gathers a shard of the merged dim whose axis does
+    not divide H (DTensor cannot unflatten it)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.shape)
+
+
+def merge_heads(x):
+    """``x`` [..., H, dh] as [..., H·dh]: a reshape, whose gradient on a
+    mesh is split by `split_heads`.  On a mesh a shard of dh (MQA, whose
+    heads the axis does not divide) is gathered first: merged, it would be
+    a strided shard of H·dh, for which DTensor plans every later
+    redistribution by a search that takes minutes on a three-axis mesh."""
+    if is_distributed(x):
+        from torch.distributed.tensor import Replicate
+        last = x.ndim - 1
+        pl = [Replicate() if p.is_shard() and p.dim == last else p
+              for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
 def constrain(x, roles):
     """Pin ``x``'s placements by a role per dim: None | "dp" | "tp" |
     "ep".  The identity outside an `axis_env`; a dim the role's axes do
@@ -1108,6 +1174,27 @@ def local_ssd(fn, d, b, x, c, u=None, h0=None):
         in_placements=(xp, xp, xp, xp, opt(u, up), opt(h0, hp)),
         in_grad_placements=(xp, xp, xp, xp, opt(u, ug), opt(h0, hp)),
         device_mesh=mesh)(d, b, x, c, u, h0)
+
+
+def local_ssd_decode(fn, d, b, x, c, u=None, h=None):
+    """``fn(d, b, x, c, u, h)`` — one token of the recurrence on plain
+    tensors — run on each rank's local shard of DTensors d, b, c [B, H,
+    N], x [B, H, P], u [H, N] and h [B, H, N, P] (batch and head shards,
+    x's; u split with the heads); returns (y, h_next) as DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    xp = _keep(x.placements, (0, 1))
+    up = [Shard(0) if p == Shard(1) else Replicate() for p in xp]
+    d, b, x, c = (t.redistribute(mesh, xp) for t in (d, b, x, c))
+    u = None if u is None else u.redistribute(mesh, up)
+    h = None if h is None else h.redistribute(mesh, xp)
+    opt = lambda t, pl: None if t is None else pl
+    return local_map(
+        fn, out_placements=(xp, xp),
+        in_placements=(xp, xp, xp, xp, opt(u, up), opt(h, xp)),
+        device_mesh=mesh)(d, b, x, c, u, h)
 
 
 def vocab_parallel_embedding(table, tokens):

@@ -43,6 +43,18 @@ The training path (the gradient of `ref.make_flash`, the reference's
     CPU `flash_attention_backward_reference`, `make_flash`'s ``bwd`` step
     by step.
 
+Each entry has a `torch.library.custom_op` (``repro_torch::
+flash_attention``, ``::flash_attention_stats``, ``::flash_attention_backward``)
+whose implementation is the device rule above.  Its fake rule (its shape
+rule) gives the outputs' shapes, dtypes and strides with no arithmetic, so
+the entries run under ``FakeTensorMode`` (the dry run, `launch.dryrun`), and
+its flop formula — the ``ops`` of `flash_attention_cost` /
+`flash_attention_backward_cost` — lets ``FlopCounterMode`` count the
+kernels as the card runs them.  Real tensors with no dispatch mode active
+call the implementation directly (`kernels.call_op`), off the dispatcher.
+A real tensor never reaches a shape rule; the launch counts and
+`flash_route` live in the implementations only.
+
 Semantics kept from the reference: GQA/MQA through kv_head = h // (H/KV);
 causal and sliding-window masks from global positions, queries shifted by
 ``q_offset``; masked scores are NEG_INF = −1e30 (not −inf) and the output
@@ -56,8 +68,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import call_op
 from repro_torch.kernels.ref import NEG_INF, keep_mask
 
 _MAX_HEAD_DIM = 256
@@ -127,6 +143,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset,
                                     scale)
+    return call_op(_flash_op, _flash_impl, q, k, v, bool(causal),
+                   int(window), q_offset, _scale(q.shape[-1], scale))
+
+
+def _flash_impl(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+                q_offset: int, scale: float) -> Tensor:
+    """`flash_attention` without grad: the kernel `flash_route` names, or
+    the plain version on the CPU."""
     route = flash_route(q.device.type, q.dtype, k.dtype, q.shape[-1],
                         v.shape[-1])
     if route == "plain":
@@ -134,11 +158,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                          window=window, q_offset=q_offset,
                                          scale=scale)
     launch = _launch_tc if route == "tensor_core" else _launch
-    out = launch(q, k, v, causal, window, q_offset,
-                 _scale(q.shape[-1], scale))
+    out = launch(q, k, v, causal, window, q_offset, scale)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention",
+                                    _flash_impl, mutates_args=())
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, causal, window, q_offset, scale):
+    return q.new_empty((*q.shape[:3], v.shape[-1]))
 
 
 flash_attention.launches = 0
@@ -363,19 +395,44 @@ def flash_attention_stats(q, k, v, *, causal: bool = True, window: int = 0,
     launch, counted by route); on the CPU the plain version, out being
     o_f32 cast to q's dtype, as the reference's ``fwd`` returns it."""
     _check(q, k, v, q_offset)
+    o, m, l, out = call_op(_flash_stats_op, _flash_stats_impl, q, k, v,
+                           bool(causal), int(window), q_offset,
+                           _scale(q.shape[-1], scale))
+    return (o if q.dtype == torch.float32 else out), o, m, l
+
+
+def _flash_stats_impl(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                      window: int, q_offset: int, scale: float
+                      ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(o_f32, m, l, out): ``out`` in q's dtype, empty for f32 q, whose
+    output is o_f32 itself (an op's outputs may not alias)."""
     route = flash_route(q.device.type, q.dtype, k.dtype, q.shape[-1],
                         v.shape[-1])
     if route == "plain":
         o, m, l = flash_attention_stats_reference(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
             scale=scale)
-        return o.to(q.dtype), o, m, l
-    launch = _launch_tc if route == "tensor_core" else _launch
-    res = launch(q, k, v, causal, window, q_offset,
-                 _scale(q.shape[-1], scale), stats=True)
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
-    return res
+    else:
+        launch = _launch_tc if route == "tensor_core" else _launch
+        out, o, m, l = launch(q, k, v, causal, window, q_offset, scale,
+                              stats=True)
+        flash_attention.launches += 1
+        flash_attention.launches_by_route[route] += 1
+    if q.dtype == torch.float32:
+        return o, m, l, q.new_empty((0,))
+    return o, m, l, (o.to(q.dtype) if route == "plain" else out)
+
+
+_flash_stats_op = torch.library.custom_op(
+    "repro_torch::flash_attention_stats", _flash_stats_impl, mutates_args=())
+
+
+@_flash_stats_op.register_fake
+def _flash_stats_shape(q, k, v, causal, window, q_offset, scale):
+    o, m, l = _stats_outputs(q, v)
+    out = (q.new_empty((0,)) if q.dtype == torch.float32
+           else q.new_empty(o.shape))
+    return o, m, l, out
 
 
 class _FlashBwdArgs(ctypes.Structure):
@@ -412,20 +469,37 @@ def flash_attention_backward(q, k, v, o, m, l, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_backward: do must be {q.dtype} "
                          f"{(B, Tq, H, dv)}, got {do.dtype} "
                          f"{tuple(do.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_backward runs on cuda or cpu, "
+                         f"got {q.device}")
+    return call_op(_flash_bwd_op, _flash_bwd_impl, q, k, v, o, m, l, do,
+                   bool(causal), int(window), q_offset, _scale(d, scale))
+
+
+def _flash_bwd_impl(q: Tensor, k: Tensor, v: Tensor, o: Tensor, m: Tensor,
+                    l: Tensor, do: Tensor, causal: bool, window: int,
+                    q_offset: int, scale: float
+                    ) -> tuple[Tensor, Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_attention_backward_reference(
             q, k, v, o, m, l, do, causal=causal, window=window,
             q_offset=q_offset, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_backward runs on cuda or cpu, "
-                         f"got {q.device}")
-    route = flash_route("cuda", q.dtype, k.dtype, d, dv)
+    route = flash_route("cuda", q.dtype, k.dtype, q.shape[-1], v.shape[-1])
     launch = _launch_bwd_tc if route == "tensor_core" else _launch_bwd
-    grads = launch(q, k, v, o, m, l, do, causal, window, q_offset,
-                   _scale(d, scale))
+    grads = launch(q, k, v, o, m, l, do, causal, window, q_offset, scale)
     flash_attention_backward.launches += 1
     flash_attention_backward.launches_by_route[route] += 1
     return grads
+
+
+_flash_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention_backward", _flash_bwd_impl,
+    mutates_args=())
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_shape(q, k, v, o, m, l, do, causal, window, q_offset, scale):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
 
 
 flash_attention_backward.launches = 0
@@ -530,8 +604,8 @@ def flash_attention_cost(q, k, v, *, causal: bool = True, window: int = 0,
     """
     B, Tq, H, d = q.shape
     Tk, dv = k.shape[1], v.shape[-1]
-    qpos = q_offset + torch.arange(Tq)
-    kept = int(keep_mask(qpos, torch.arange(Tk), causal, window).sum())
+    kept = kept_pairs(Tq, Tk, causal=causal, window=window,
+                      q_offset=q_offset)
     nbytes = (q.numel() * q.element_size() + k.numel() * k.element_size()
               + v.numel() * v.element_size() + B * Tq * H * dv
               * q.element_size())
@@ -561,3 +635,43 @@ def flash_attention_backward_cost(q, k, v, *, causal: bool = True,
     return {"bytes": nbytes,
             "ops": B * H * fwd["pairs"] * (6 * d + 4 * dv + 6) + rows * 2 * dv,
             "pairs": fwd["pairs"]}
+
+
+def kept_pairs(Tq: int, Tk: int, *, causal: bool = True, window: int = 0,
+               q_offset: int = 0) -> int:
+    """The (query, key) pairs `keep_mask` keeps, counted on the host from
+    the bounds of each row's kept span (no tensor: a shape rule's flop
+    formula runs under ``FakeTensorMode``)."""
+    p = q_offset + np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(p, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(Tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flops(cost, *names):
+    """A flop formula for ``FlopCounterMode`` from a cost function: the
+    op's positional ``names`` bound to their values, ``cost(...)["ops"]``."""
+    def formula(*args, out_val=None, **kwargs):
+        kw = dict(zip(names, args), **kwargs)
+        return cost(**kw)["ops"]
+    return formula
+
+
+register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)(
+    _flops(lambda q, k, v, causal, window, q_offset, scale:
+           flash_attention_cost(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset),
+           "q", "k", "v", "causal", "window", "q_offset", "scale"))
+register_flop_formula(torch.ops.repro_torch.flash_attention_stats,
+                      get_raw=True)(
+    _flops(lambda q, k, v, causal, window, q_offset, scale:
+           flash_attention_cost(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset),
+           "q", "k", "v", "causal", "window", "q_offset", "scale"))
+register_flop_formula(torch.ops.repro_torch.flash_attention_backward,
+                      get_raw=True)(
+    _flops(lambda q, k, v, o, m, l, do, causal, window, q_offset, scale:
+           flash_attention_backward_cost(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset),
+           "q", "k", "v", "o", "m", "l", "do", "causal", "window",
+           "q_offset", "scale"))

@@ -5,7 +5,8 @@
     to `flash_attention`.
   * `ssd` — the chunked recurrence, `ssm_scan.ssd`.
   * `ssd_decode_step` — the O(1) one-token update, `ref.ssd_decode_step`
-    (no kernel: the reference has none either).
+    (no kernel: the reference has none either); on a mesh on each rank's
+    batch and head shard.
   * `thermal_conv` — the Γ-coupled pole-bank trace.
 
 Each kernel wrapper runs its hand-written CUDA kernel for CUDA tensors and
@@ -13,17 +14,16 @@ its plain PyTorch version for CPU tensors: the tensors' device decides,
 nothing else (there is no environment switch).  A failed build or launch
 raises; it never falls back to the plain version.
 
-On a mesh (DTensor inputs) `attention`'s flash route and `ssd` run the same
-wrappers on each rank's local batch and head shard
-(`sharding.local_attention`, `sharding.local_ssd`); the kernel modules
+On a mesh (DTensor inputs) `attention` (both routes) and `ssd` run the
+same functions on each rank's local batch and head shard
+(`sharding.local_attention`, `sharding.local_ssd`; ``kv_positions`` must
+then be a plain tensor, the same on every rank); the kernel modules
 themselves take plain tensors only.
 """
 from repro_torch.distributed import sharding
 from repro_torch.kernels import ref, ssm_scan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.thermal_conv import thermal_conv
-
-ssd_decode_step = ref.ssd_decode_step
 
 __all__ = ["attention", "ssd", "ssd_decode_step", "thermal_conv"]
 
@@ -33,9 +33,12 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
     """Multi-head attention (GQA/MQA aware).  q: [B, Tq, H, d]; k, v:
     [B, Tk, KV, d].  See the module docstring for the routing."""
     if q.shape[1] == 1 or kv_positions is not None:
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset,
-                                 kv_positions=kv_positions, scale=scale)
+        naive = lambda a, b, c: ref.attention_ref(
+            a, b, c, causal=causal, window=window, q_offset=q_offset,
+            kv_positions=kv_positions, scale=scale)
+        if sharding.is_distributed(q):
+            return sharding.local_attention(naive, q, k, v)
+        return naive(q, k, v)
     if sharding.is_distributed(q):
         return sharding.local_attention(
             lambda a, b, c: flash_attention(a, b, c, causal=causal,
@@ -54,3 +57,14 @@ def ssd(d, b, x, c, *, u=None, h0=None, chunk=64, include_current=True):
             d, b, x, c, u, h0)
     return ssm_scan.ssd(d, b, x, c, u=u, h0=h0, chunk=chunk,
                         include_current=include_current)
+
+
+def ssd_decode_step(d, b, x, c, *, u=None, h=None, include_current=True):
+    """One token of the recurrence (`ref.ssd_decode_step`, same
+    arguments); on a mesh on each rank's batch and head shard
+    (`sharding.local_ssd_decode`)."""
+    step = lambda d_, b_, x_, c_, u_, h_: ref.ssd_decode_step(
+        d_, b_, x_, c_, u=u_, h=h_, include_current=include_current)
+    if sharding.is_distributed(x):
+        return sharding.local_ssd_decode(step, d, b, x, c, u, h)
+    return step(d, b, x, c, u, h)

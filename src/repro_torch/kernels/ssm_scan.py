@@ -25,6 +25,16 @@ Port of the TPU kernel `repro.kernels.ssm_scan.ssd` (Pallas body
     then every other gradient chunk-parallel, the chunk products on the
     tensor cores in 3×TF32; `ssd_backward_reference` on the CPU).
 
+Each entry has a `torch.library.custom_op` (``repro_torch::ssd``,
+``::ssd_states``, ``::ssd_backward``) whose implementation is the device
+rule above; its fake rule (its shape rule) gives the outputs' shapes,
+dtypes and strides with no arithmetic, for ``FakeTensorMode`` (the dry run,
+`launch.dryrun`), and its flop formula — `ssd_cost` / `ssd_backward_cost`
+— lets ``FlopCounterMode`` count the kernel as the card runs it.  Real
+tensors with no dispatch mode active call the implementation directly
+(`kernels.call_op`), off the dispatcher.  A real tensor never reaches a
+shape rule.
+
 Per chunk both compute, in f32: the inclusive log-decay cumsum L; ĉ = c·e^L,
 b̂ = b·e^{−L}, b̃ = b·e^{L_C − L}; the masked [C, C] scores ĉ·b̂ᵀ (s ≤ t with
 ``include_current``, s < t without) times x; the optional per-head bonus
@@ -39,6 +49,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import call_op
 
 _MAX_CHUNK = 64
 _MAX_N = 64
@@ -102,17 +116,45 @@ def ssd(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (d, b, x, c, u, h0)):
         return SsdFunction.apply(d, b, x, c, u, h0, ck, include_current)
+    _check_device(d, ck)
+    return call_op(_ssd_op, _ssd_impl, d, b, x, c, u, h0, ck,
+                   bool(include_current))
+
+
+def _ssd_impl(d: Tensor, b: Tensor, x: Tensor, c: Tensor, u: Tensor | None,
+              h0: Tensor | None, chunk: int, include_current: bool
+              ) -> tuple[Tensor, Tensor]:
     if d.device.type == "cpu":
-        return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=ck,
+        return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=chunk,
                              include_current=include_current)
-    _check_cuda(d, ck)
-    return _launch(d, b, x, c, u, h0, ck, include_current)
+    return _launch(d, b, x, c, u, h0, chunk, include_current)
+
+
+_ssd_op = torch.library.custom_op("repro_torch::ssd", _ssd_impl,
+                                  mutates_args=())
+
+
+@_ssd_op.register_fake
+def _ssd_shape(d, b, x, c, u, h0, chunk, include_current):
+    return _forward_shapes(d, x, chunk)[:2]
+
+
+def _forward_shapes(d, x, chunk):
+    """The forward's outputs as a launch allocates them: y like x, hT
+    [B, H, N, P] f32 and the chunk states hs [B, nc, H, N, P] f32."""
+    B, T, H, N = d.shape
+    P = x.shape[-1]
+    f32 = dict(dtype=torch.float32, device=d.device)
+    return (torch.empty_like(x), torch.empty((B, H, N, P), **f32),
+            torch.empty((B, T // chunk, H, N, P), **f32))
 
 
 ssd.launches = 0
 
 
-def _check_cuda(d, ck) -> None:
+def _check_device(d, ck) -> None:
+    if d.device.type == "cpu":
+        return
     if d.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda or cpu, got {d.device}")
     if ck > _MAX_CHUNK:
@@ -128,11 +170,28 @@ def ssd_states(d, b, x, c, *, u=None, h0=None, chunk: int = 64,
     on the CPU `ssd_reference` with ``states=True``."""
     _check(d, b, x, c, u, h0)
     ck = chunk_for(d.shape[1], chunk)
+    _check_device(d, ck)
+    return call_op(_ssd_states_op, _ssd_states_impl, d, b, x, c, u, h0, ck,
+                   bool(include_current))
+
+
+def _ssd_states_impl(d: Tensor, b: Tensor, x: Tensor, c: Tensor,
+                     u: Tensor | None, h0: Tensor | None, chunk: int,
+                     include_current: bool
+                     ) -> tuple[Tensor, Tensor, Tensor]:
     if d.device.type == "cpu":
-        return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=ck,
+        return ssd_reference(d, b, x, c, u=u, h0=h0, chunk=chunk,
                              include_current=include_current, states=True)
-    _check_cuda(d, ck)
-    return _launch(d, b, x, c, u, h0, ck, include_current, states=True)
+    return _launch(d, b, x, c, u, h0, chunk, include_current, states=True)
+
+
+_ssd_states_op = torch.library.custom_op("repro_torch::ssd_states",
+                                         _ssd_states_impl, mutates_args=())
+
+
+@_ssd_states_op.register_fake
+def _ssd_states_shape(d, b, x, c, u, h0, chunk, include_current):
+    return _forward_shapes(d, x, chunk)
 
 
 class _SsdArgs(ctypes.Structure):
@@ -267,14 +326,44 @@ def ssd_backward(d, b, x, c, u, h0, hs, dy, dhT, *, chunk: int = 64,
     _check(d, b, x, c, u, h0)
     ck = chunk_for(d.shape[1], chunk)
     _check_backward(d, x, hs, dy, dhT, ck)
+    _check_device(d, ck)
+    *grads, du, dh0 = call_op(_ssd_bwd_op, _ssd_bwd_impl, d, b, x, c, u,
+                              h0, hs, dy, dhT, ck, bool(include_current))
+    return (*grads, du if u is not None else None, dh0)
+
+
+def _ssd_bwd_impl(d: Tensor, b: Tensor, x: Tensor, c: Tensor,
+                  u: Tensor | None, h0: Tensor | None, hs: Tensor,
+                  dy: Tensor, dhT: Tensor | None, chunk: int,
+                  include_current: bool
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(dd, db, dx, dc, du, dh0), du empty without ``u`` (an op returns
+    no None)."""
     if d.device.type == "cpu":
-        return ssd_backward_reference(d, b, x, c, u, h0, hs, dy, dhT,
-                                      chunk=ck,
-                                      include_current=include_current)
-    _check_cuda(d, ck)
-    grads = _launch_bwd(d, b, x, c, u, hs, dy, dhT, ck, include_current)
-    ssd_backward.launches += 1
-    return grads
+        grads = ssd_backward_reference(d, b, x, c, u, h0, hs, dy, dhT,
+                                       chunk=chunk,
+                                       include_current=include_current)
+    else:
+        grads = _launch_bwd(d, b, x, c, u, hs, dy, dhT, chunk,
+                            include_current)
+        ssd_backward.launches += 1
+    *g, du, dh0 = grads
+    return (*g, d.new_empty((0,), dtype=torch.float32) if du is None
+            else du, dh0)
+
+
+_ssd_bwd_op = torch.library.custom_op("repro_torch::ssd_backward",
+                                      _ssd_bwd_impl, mutates_args=())
+
+
+@_ssd_bwd_op.register_fake
+def _ssd_bwd_shape(d, b, x, c, u, h0, hs, dy, dhT, chunk, include_current):
+    B, T, H, N = d.shape
+    f32 = dict(dtype=torch.float32, device=d.device)
+    du = (torch.empty((0,), **f32) if u is None
+          else torch.empty((H, N), **f32))
+    return (*(torch.empty_like(t) for t in (d, b, x, c)), du,
+            torch.empty((B, H, N, x.shape[-1]), **f32))
 
 
 ssd_backward.launches = 0
@@ -486,3 +575,21 @@ def ssd_backward_cost(d, b, x, c, u=None, dhT=None, *,
     nbytes = (2 * (size(d) + size(b) + size(c) + size(x)) + size(x)
               + nc * state + 2 * size(u) + size(dhT) + state)
     return {"bytes": nbytes, "ops": B * H * nc * per_chunk}
+
+
+def _ssd_flops(*args, out_val=None, **kwargs):
+    d, b, x, c, u, h0 = args[:6]
+    return ssd_cost(d, b, x, c, u, h0)["ops"]
+
+
+def _ssd_bwd_flops(*args, out_val=None, **kwargs):
+    d, b, x, c, u, _, _, _, dhT, _, include_current = args
+    return ssd_backward_cost(d, b, x, c, u, dhT,
+                             include_current=include_current)["ops"]
+
+
+register_flop_formula([torch.ops.repro_torch.ssd,
+                       torch.ops.repro_torch.ssd_states],
+                      get_raw=True)(_ssd_flops)
+register_flop_formula(torch.ops.repro_torch.ssd_backward,
+                      get_raw=True)(_ssd_bwd_flops)

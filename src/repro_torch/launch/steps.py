@@ -180,13 +180,27 @@ def make_prefill_step(cfg: ArchConfig, max_seq: int):
 
 def make_decode_step(cfg: ArchConfig):
     """(params, cache, token [B] or embed [B, D], pos) → (logits [B, V],
-    cache), the cache updated in place."""
+    cache), the cache updated in place.  ``pos`` is the token's absolute
+    position, a Python int (the slot it writes and the mask depend on it),
+    as `input_specs` gives it."""
     def decode_step(params, cache, token, pos: int):
         return tf.decode_step(params, cfg, cache, token, pos)
     return decode_step
 
 
 # ============================================================ input specs ==
+def _fake_mode():
+    """The active ``FakeTensorMode`` (its tensors mix with the caller's),
+    else a new one."""
+    import contextlib
+
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return (contextlib.nullcontext() if detect_fake_mode() is not None
+            else FakeTensorMode())
+
+
 def _fake(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype)
 
@@ -198,15 +212,17 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, n_tiles: int = 256
     memory), as the reference's ``ShapeDtypeStruct``s.
 
     A decode cell's cache (the carried state of its step) comes from
-    `transformer.init_cache` under the fake mode.  Stub-frontend archs
-    (vlm / audio) take precomputed embeddings.
+    `transformer.init_cache` under the fake mode, and its ``pos`` is a
+    Python int, as `make_decode_step` takes it: the cache's last position,
+    S − 1, so the step reads a full cache (the reference's is a traced
+    int32 scalar).  Stub-frontend archs (vlm / audio) take precomputed
+    embeddings.  Under an active ``FakeTensorMode`` the tensors are that
+    mode's.
     """
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
     B, S = shape.global_batch, shape.seq_len
     stub = cfg.frontend != "token"
     emb = getattr(torch, cfg.dtype)
-    with FakeTensorMode():
+    with _fake_mode():
         if shape.kind in ("train", "prefill"):
             tok = (_fake((B, S, cfg.d_model), emb) if stub
                    else _fake((B, S), torch.int32))
@@ -217,7 +233,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, n_tiles: int = 256
         tok = (_fake((B, cfg.d_model), emb) if stub
                else _fake((B,), torch.int32))
         return {"cache": tf.init_cache(cfg, B, S), "token": tok,
-                "pos": _fake((), torch.int32)}
+                "pos": S - 1}
 
 
 def batch_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:

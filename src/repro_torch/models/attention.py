@@ -25,7 +25,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain_heads, split_heads
+from repro_torch.distributed.sharding import (constrain_heads, first_row,
+                                              is_distributed, merge_heads,
+                                              split_heads)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal, param_dtype, rms_norm, rope
 
@@ -66,7 +68,7 @@ def gqa_forward(p: dict, x, cfg: ArchConfig, positions):
     k = rope(k, positions, theta=cfg.rope_theta)
     o = constrain_heads(ops.attention(q, k, v, causal=True,
                                       window=_window(cfg)))
-    return o.reshape(B, S, h * dh) @ p["wo"], (k, v)
+    return merge_heads(o) @ p["wo"], (k, v)
 
 
 # int8 KV cache: per-(position, head) symmetric scales in f16
@@ -100,9 +102,9 @@ def gqa_decode(p: dict, x, cfg: ArchConfig, cache_k, cache_v, cache_pos,
     """
     B = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, h, dh)
-    k = (x @ p["wk"]).reshape(B, 1, kv, dh)
-    v = (x @ p["wv"]).reshape(B, 1, kv, dh)
+    q = split_heads(x @ p["wq"], (B, 1, h, dh))
+    k = split_heads(x @ p["wk"], (B, 1, kv, dh))
+    v = split_heads(x @ p["wv"], (B, 1, kv, dh))
     posv = torch.full((1,), pos, device=x.device)
     q = rope(q, posv, theta=cfg.rope_theta)
     k = rope(k, posv, theta=cfg.rope_theta)
@@ -118,10 +120,13 @@ def gqa_decode(p: dict, x, cfg: ArchConfig, cache_k, cache_v, cache_pos,
         cache_k[:, slot] = k[:, 0]
         cache_v[:, slot] = v[:, 0]
         k_full, v_full = cache_k, cache_v
-    cache_pos[:, slot] = pos
+    # on a mesh a tensor, not a number: DTensor has no rule for filling
+    # a slice of a placed tensor with a scalar
+    cache_pos[:, slot] = (torch.full_like(cache_pos[:, slot], pos)
+                          if is_distributed(cache_pos) else pos)
     o = ops.attention(q, k_full, v_full, causal=True, window=_window(cfg),
-                      q_offset=pos, kv_positions=cache_pos[0])
-    out = o.reshape(B, 1, h * dh) @ p["wo"]
+                      q_offset=pos, kv_positions=first_row(cache_pos))
+    out = merge_heads(o) @ p["wo"]
     if quant:
         return out, cache_k, cache_v, cache_pos, kv_scales
     return out, cache_k, cache_v, cache_pos
@@ -147,7 +152,7 @@ def mla_forward(p: dict, x, cfg: ArchConfig, positions):
     qf = torch.cat([q_nope, q_rope], -1)
     o = constrain_heads(ops.attention(qf, k, v,
                                       scale=(dh + rd) ** -0.5))
-    return o.reshape(B, S, h * dh) @ p["wo"], (c, k_rope[:, :, 0])
+    return merge_heads(o) @ p["wo"], (c, k_rope[:, :, 0])
 
 
 def mla_decode(p: dict, x, cfg: ArchConfig, cache_c, cache_kr, pos: int):
@@ -163,7 +168,7 @@ def mla_decode(p: dict, x, cfg: ArchConfig, cache_c, cache_kr, pos: int):
     h, dh, r, rd = cfg.n_heads, cfg.head_dim, cfg.mla_kv_lora, \
         cfg.mla_rope_dim
     S = cache_c.shape[1]
-    q = (x @ p["wq"]).reshape(B, 1, h, dh + rd)
+    q = split_heads(x @ p["wq"], (B, 1, h, dh + rd))
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     posv = torch.full((1,), pos, device=x.device)
     q_rope = rope(q_rope, posv, theta=cfg.rope_theta)

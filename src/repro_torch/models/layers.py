@@ -189,11 +189,19 @@ def moe_apply(p: dict, x, cfg: ArchConfig, opts: MoEOptions | None = None):
 
 
 def _moe_routed(xf, router, we_gate, we_up, we_down, cfg: ArchConfig,
-                opts: MoEOptions, e0: int = 0):
+                opts: MoEOptions, e0: int = 0, static: bool | None = None):
     """The routed experts of `moe_apply` on tokens xf [N, D]: (y [N, D] in
     xf's dtype, aux).  The expert weights hold experts [e0, e0 + len) of
     the E; tokens routed to the others add nothing here (a rank's share
-    of an expert-parallel layer)."""
+    of an expert-parallel layer).
+
+    Every (token, slot) is scattered into a fixed buffer, the dropped ones
+    into one dump row past its end.  Only the experts that get a buffer
+    depend on the form, and y and aux are bit-equal in both: on real
+    tensors, the experts some token routes to; in the static form
+    (``static``; None picks it for fake tensors, whose values are unknown:
+    the dry run), the reference's compiled bound, every expert of the
+    share (U = El)."""
     N, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     El = we_gate.shape[0]
@@ -203,27 +211,34 @@ def _moe_routed(xf, router, we_gate, we_up, we_down, cfg: ArchConfig,
     ng = N // g
     cap = max(int(g * k / E * opts.capacity_factor), 1)
     dev = xf.device
+    if static is None:
+        from torch._subclasses.fake_tensor import is_fake
+        static = is_fake(xf)
 
     probs = torch.softmax(xf.float() @ router.float(), -1)        # [N, E]
     topw, topi = torch.topk(probs, k, dim=-1)                      # [N, k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
-        0, topi.reshape(-1), torch.ones(N * k, device=dev)) / (N * k)
+    ce = probs.new_zeros(E).index_add_(
+        0, topi.reshape(-1), probs.new_ones(N * k)) / (N * k)
     aux = E * torch.sum(probs.mean(0) * ce)
 
-    used = torch.unique(topi)                      # ascending expert ids
     mine = None
     if El < E:
-        used = used[(used >= e0) & (used < e0 + El)]
         mine = torch.zeros(E, dtype=torch.bool, device=dev)
         mine[e0:e0 + El] = True
+    if static:
+        used = torch.arange(e0, e0 + El, device=dev)
+    else:
+        used = torch.unique(topi)                  # ascending expert ids
+        if El < E:
+            used = used[(used >= e0) & (used < e0 + El)]
     U = used.numel()
     slot = torch.zeros(E, dtype=torch.long, device=dev)
     slot[used] = torch.arange(U, device=dev)
     wg, wu, wd = (_experts_f32(w, used - e0, El)
                   for w in (we_gate, we_up, we_down))
 
-    y = torch.empty((N, D), dtype=xf.dtype, device=dev)
+    y = xf.new_empty((N, D))
     passes = -(-ng // max(_PASS_TOKENS // g, 1))
     per = -(-ng // passes)                         # groups per pass, even
     for g0 in range(0, ng, per):
@@ -239,11 +254,14 @@ def _moe_routed(xf, router, we_gate, we_up, we_down, cfg: ArchConfig,
         keep = keep.reshape(c * g, k)
         group = torch.arange(c, device=dev)[:, None].expand(c, g * k)
         row = ((slot[ig] * c + group) * cap + arrive).reshape(c * g, k)
+        n_rows = U * c * cap
+        # one dump row past the buffer takes every dropped slot
+        xe = xf.new_zeros((n_rows + 1, D), dtype=torch.float32)
+        xe[torch.where(keep, row, n_rows).reshape(-1)] = (
+            xf[t0:t1].float()[:, None].expand(c * g, k, D)
+            .reshape(c * g * k, D))
+        xe = xe[:n_rows].reshape(U, c * cap, D)
         row = torch.where(keep, row, 0)            # [U, c, cap] flattened
-        tok = torch.arange(c * g, device=dev)[:, None].expand(c * g, k)
-        xe = torch.zeros((U * c * cap, D), dtype=torch.float32, device=dev)
-        xe[row[keep]] = xf[t0:t1][tok[keep]].float()
-        xe = xe.reshape(U, c * cap, D)
         h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
         ye = torch.bmm(h, wd).reshape(U * c * cap, D)
         w = torch.where(keep, topw[t0:t1], 0.0)

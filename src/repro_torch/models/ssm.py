@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain, split_heads
+from repro_torch.distributed.sharding import (constrain, merge_heads,
+                                              split_heads)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal, param_dtype
 
@@ -103,19 +104,18 @@ def mamba2_forward(p: dict, x, cfg: ArchConfig, chunk: int = 64):
                     c.contiguous(), chunk=min(chunk, T),
                     include_current=True)
     y = y + p["d_skip"][None, None, :, None].to(y.dtype) * xs
-    y = y.reshape(B, T, 2 * D) * F.silu(z)
+    y = merge_heads(y) * F.silu(z)
     return y @ p["out_proj"], (hT, tail)
 
 
 def mamba2_decode(p: dict, x, cfg: ArchConfig, h, conv_state):
     """One-token decode.  h: [B,H,N,P] f32; conv_state: [B,3,di].
     Returns (y, h_next, conv_tail)."""
-    B = x.shape[0]
     xs, z, d, b, c, tail = _mamba_pre(p, x, cfg, conv_state)
     y, h_next = ops.ssd_decode_step(d[:, 0], b[:, 0], xs[:, 0], c[:, 0],
                                     h=h, include_current=True)
     y = y + p["d_skip"][None, :, None].to(y.dtype) * xs[:, 0]
-    y = y.reshape(B, 1, -1) * F.silu(z)
+    y = merge_heads(y)[:, None] * F.silu(z)
     return y @ p["out_proj"], h_next, tail
 
 
@@ -179,7 +179,7 @@ def rwkv6_time_mix(p: dict, x, cfg: ArchConfig, prev_x=None, h0=None,
         split_heads(t, (B, T, nh, hd)).contiguous(), ("dp", None, "tp", None))
     y, hT = ops.ssd(heads(decay), heads(k), heads(v), heads(r), u=p["u"],
                     h0=h0, chunk=min(chunk, T), include_current=False)
-    y = y.reshape(B, T, D) * g
+    y = merge_heads(y) * g
     return y @ p["wo"], (hT, x[:, -1:])
 
 
@@ -190,11 +190,11 @@ def rwkv6_time_mix_decode(p: dict, x, cfg: ArchConfig, h, prev_x):
     hd = cfg.rwkv_head_dim
     nh = D // hd
     r, k, v, decay, g = _time_mix_in(p, x, prev_x)
-    heads = lambda t: t.reshape(B, nh, hd)
+    heads = lambda t: split_heads(t[:, 0], (B, nh, hd))
     y, h_next = ops.ssd_decode_step(heads(decay), heads(k), heads(v),
                                     heads(r), u=p["u"], h=h,
                                     include_current=False)
-    return (y.reshape(B, 1, D) * g) @ p["wo"], h_next, x
+    return (merge_heads(y)[:, None] * g) @ p["wo"], h_next, x
 
 
 def rwkv6_channel_mix(p: dict, x, prev_x=None):

@@ -284,8 +284,19 @@ def loss_fn(p: Params, cfg: ArchConfig, tokens, labels, *,
 
 # ================================================================ cache ==
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device=None) -> Cache:
-    """The empty decode cache, laid out as the reference's."""
+               device=None, like=None) -> Cache:
+    """The empty decode cache, laid out as the reference's.  With a
+    DTensor ``like`` (an activation on a mesh) each leaf is a DTensor on
+    its mesh placed by `sharding.cache_specs`, each rank making only its
+    shard."""
+    if like is not None and sharding.is_distributed(like):
+        mesh, local = like.device_mesh, like.to_local()
+        meta = init_cache(cfg, batch, max_seq, device="meta")
+        specs = sharding.cache_specs(cfg, meta, mesh)
+        return sharding.map_with_path(
+            lambda path, x: sharding.new_placed(
+                local, x.shape, x.dtype, mesh, _at(specs, path),
+                -1 if path[-1] == "pos" else 0), meta)
     dt = param_dtype(cfg)
     L, D = cfg.n_layers, cfg.d_model
     z = lambda *s, dtype=dt: torch.zeros(s, dtype=dtype, device=device)
@@ -317,6 +328,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return {"k": z(*kv), "v": z(*kv), "pos": unfilled(L, batch, w)}
 
 
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _placed_as_specs(cfg: ArchConfig, cache: Cache, mesh) -> Cache:
+    """Every leaf of a prefill's cache on ``mesh`` as `sharding.
+    cache_specs` places it (a leaf computed on the mesh may come out
+    placed otherwise; a plain one, the same on every rank, keeps its
+    slice)."""
+    specs = sharding.cache_specs(cfg, cache, mesh)
+    return sharding.map_with_path(
+        lambda path, x: sharding.distribute_leaf(
+            x, mesh, sharding.placements(mesh, _at(specs, path))), cache)
+
+
 def _fill_kv(cache: Cache, k, v, S: int) -> Cache:
     """Write the prompt's keys and values into the cache (the trailing
     window, ring-aligned so position p sits in slot p % w, when the prompt
@@ -332,8 +360,7 @@ def _fill_kv(cache: Cache, k, v, S: int) -> Cache:
         for name, t in leaves.items():
             cache[name] = torch.roll(t[:, :, S - w:], shift, 2).contiguous()
         pos = torch.arange(S - w, S, dtype=torch.int32, device=k.device)
-        cache["pos"] = torch.roll(pos, shift, 0).expand_as(
-            cache["pos"]).contiguous()
+        cache["pos"].copy_(torch.roll(pos, shift, 0).expand_as(cache["pos"]))
     else:
         for name, t in leaves.items():
             cache[name][:, :, :S] = t
@@ -349,32 +376,43 @@ def prefill(p: Params, cfg: ArchConfig, tokens, max_seq: int):
 
     The LM head is applied to the last position only: the rows are
     independent and only the last is returned, and at Gemma's 256,000-word
-    vocabulary the whole [B, S, V] f32 tensor would take gigabytes.
+    vocabulary the whole [B, S, V] f32 tensor would take gigabytes.  On a
+    mesh the cache comes back placed by `sharding.cache_specs`, as
+    `decode_step` takes it.
     """
     B, S = tokens.shape[:2]
     x, fc, _ = _trunk(p, cfg, tokens, collect_cache=True)
     last = _logits(p, cfg, x[:, -1:])[:, 0]
     if cfg.family == "ssm":
-        return last, dict(zip(("h", "prev_t", "prev_c"), fc)), S
-    cache = init_cache(cfg, B, max_seq, device=x.device)
-    if cfg.mla_kv_lora:
-        cache["c"][:, :, :S], cache["kr"][:, :, :S] = fc
-        return last, cache, S
-    if cfg.family == "hybrid":
-        cache["h"], cache["conv"] = fc["mamba"]
-        fc = fc["attn"]
-    return last, _fill_kv(cache, *fc, S), S
+        cache = dict(zip(("h", "prev_t", "prev_c"), fc))
+    else:
+        cache = init_cache(cfg, B, max_seq, device=x.device, like=x)
+        if cfg.mla_kv_lora:
+            cache["c"][:, :, :S], cache["kr"][:, :, :S] = fc
+        else:
+            if cfg.family == "hybrid":
+                cache["h"], cache["conv"] = fc["mamba"]
+                fc = fc["attn"]
+            if fc:                  # a hybrid cut below one group has none
+                cache = _fill_kv(cache, *fc, S)
+    if sharding.is_distributed(x):
+        cache = _placed_as_specs(cfg, cache, x.device_mesh)
+    return last, cache, S
 
 
 # ================================================================ decode ==
 def decode_step(p: Params, cfg: ArchConfig, cache: Cache, token, pos: int):
     """One decode step.  token: [B] ints or [B, D] stub embeddings; pos:
     the absolute position (a Python int).  Returns (logits [B, V] f32,
-    cache), the cache updated in place."""
+    cache), the cache updated in place.  On a mesh each layer gathers its
+    FSDP weights first, as a training block does (`sharding.gather_dp`):
+    a weight split over "data" would otherwise gather the batch, and with
+    it every rank's cache."""
     x = _embed_in(p, cfg, token[:, None])           # [B, 1, D]
     if cfg.family == "hybrid":
         return _hybrid_decode(p, cfg, cache, x, pos)
     for i, bp in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+        bp = sharding.gather_dp(bp)
         if cfg.family == "ssm":
             h = rms_norm(x, bp["tm_norm"], cfg.norm_eps)
             y, h2, pt = ssm.rwkv6_time_mix_decode(
@@ -408,11 +446,15 @@ def decode_step(p: Params, cfg: ArchConfig, cache: Cache, token, pos: int):
 
 def _hybrid_decode(p: Params, cfg: ArchConfig, cache: Cache, x, pos: int):
     layers = _unstack(p["blocks"], cfg.n_layers)
+    p = dict(p, **sharding.gather_dp({k: p[k] for k in (
+        "shared_attn_norm", "shared_attn", "shared_mlp_norm",
+        "shared_mlp")}))
     off = app = 0
     for gs in _hybrid_group_ids(cfg):
         for i in range(off, off + gs):
-            hh = rms_norm(x, layers[i]["mamba_norm"], cfg.norm_eps)
-            y, h2, c2 = ssm.mamba2_decode(layers[i]["mamba"], hh, cfg,
+            lp = sharding.gather_dp(layers[i])
+            hh = rms_norm(x, lp["mamba_norm"], cfg.norm_eps)
+            y, h2, c2 = ssm.mamba2_decode(lp["mamba"], hh, cfg,
                                           cache["h"][i], cache["conv"][i])
             cache["h"][i] = h2
             cache["conv"][i] = c2

@@ -19,8 +19,9 @@ tensor enters a device op as a scalar.
 
 On a mesh (`repro_torch.distributed.sharding`) the leaves are DTensors:
 the moments take their parameters' placements, each update runs on every
-rank's own shard, and the global norm is a replicated scalar (one small
-reduction a sharded leaf).  Run it under `sharding.axis_env`, which lets
+rank's own shard as plain tensor ops (`_shards`: no DTensor dispatch per
+op), and the global norm is a replicated scalar (one small reduction a
+sharded leaf).  Run it under `sharding.axis_env`, which lets
 the host scalars meet the DTensors as replicated values.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.checkpoint.manager import tree_leaves, tree_unflatten
-from repro_torch.distributed.sharding import replicate
+from repro_torch.distributed.sharding import is_distributed, replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,24 @@ def global_norm(tree) -> torch.Tensor:
                                     for x in tree_leaves(tree))))
 
 
+def _local(x):
+    """A replicated DTensor's value on this rank; anything else as it
+    is."""
+    return x.to_local() if is_distributed(x) else x
+
+
+def _shards(*leaves):
+    """A leaf, its gradient and moments as this rank's shards (DTensors
+    placed alike), or as they are."""
+    if not is_distributed(leaves[0]):
+        return leaves
+    pls = leaves[0].placements
+    if any(x.placements != pls for x in leaves[1:]):
+        raise ValueError(f"adamw_update: a leaf placed {pls}, its gradient "
+                         f"or moments {[x.placements for x in leaves[1:]]}")
+    return tuple(x.to_local() for x in leaves)
+
+
 def adamw_update(grads, state: AdamWState, params,
                  cfg: AdamWConfig | None = None):
     """One AdamW step, in place: ``params`` and ``state``'s moments are
@@ -103,14 +122,20 @@ def adamw_update(grads, state: AdamWState, params,
     c = count.to(torch.float32)
     b1c = 1 - cfg.b1 ** c
     b2c = 1 - cfg.b2 ** c
+    # on a mesh the update is elementwise on each rank's shards (a leaf,
+    # its gradient and moments share placements; the scalars are
+    # replicated): the same arithmetic, without DTensor's dispatch
+    # around every op of every leaf
+    scale_, lr_, b1c, b2c = (_local(x) for x in (scale, lr, b1c, b2c))
     with torch.no_grad():
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state.m), tree_leaves(state.v)):
-            g = g.float() * scale
+            p, g, m, v = _shards(p, g, m, v)
+            g = g.float() * scale_
             m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
             v.mul_(cfg.b2).add_(g.square_() * (1 - cfg.b2))
             step = (m / b1c).div_(torch.sqrt(v / b2c).add_(cfg.eps))
             step.add_(p.float() * cfg.weight_decay)
-            p.copy_(p.float() - step.mul_(lr))
+            p.copy_(p.float() - step.mul_(lr_))
     return params, AdamWState(state.m, state.v, count), {
         "grad_norm": gnorm, "lr": lr}

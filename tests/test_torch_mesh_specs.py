@@ -168,6 +168,12 @@ def test_input_specs_match_reference(shape_name):
                               n_tiles=16)
         assert sorted(got) == sorted(want)
         for key, ref in want.items():
+            if key == "pos":
+                # a Python int in the port (`make_decode_step` takes one):
+                # the cache's last position; the reference's an int32 ()
+                assert got[key] == SHAPES[shape_name].seq_len - 1
+                assert tuple(ref.shape) == () and str(ref.dtype) == "int32"
+                continue
             ref_flat = jax.tree_util.tree_flatten_with_path(ref)[0]
             leaves = tree_leaves(got[key])
             assert len(leaves) == len(ref_flat)
