@@ -80,7 +80,7 @@ Phase G  the model-serving kernels against their plain versions on the
          scaled_dot_product_attention (library_ms, a yardstick only).
 Phase H  the serving slice end to end at full width in bf16: `serve`
          --arch zamba2-7b, then gemma-2b, --batch 8 --prompt-len 1024
-         --gen 32 --waves 3 --fleet 64 — exactly 81 ssd and 13 flash
+         --gen 16 --waves 3 --fleet 64 — exactly 81 ssd and 13 flash
          launches per Zamba2-7B prefill, 18 flash per Gemma-2B prefill and
          none in decode, every flash launch on the tensor-core route; a
          profiled prefill and decode step of each (device time by kernel
@@ -166,7 +166,7 @@ Phase K  every model family of configs/ served.  (a) The serving
          `serve._wave_loop` with `dataclasses.replace(cfg, n_layers=k)`,
          the depth cut to fit 80 GB: chameleon-34b at 24 of 48 layers (24
          flash), mixtral-8x7b at 8 of 32 with --batch 2 --prompt-len 4608
-         --gen 32 (8 flash on the tensor-core route; the prefill masks
+         --gen 16 (8 flash on the tensor-core route; the prefill masks
          keys, the ring rolls by 512, decode writes slot pos % 4096) and
          deepseek-v2-236b at 4 of 60 with --batch 2 --prompt-len 1024
          --gen 16 (4 flash on the tensor-core route) — exact launch counts
@@ -319,7 +319,30 @@ Phase P  the dry run (`launch.dryrun`, in a child process that owns a fake
          10 % of Phase O's measured peak; (c) each kernel's shape rule
          against the kernel at the local shapes (a) and Phase O met (shape,
          dtype, stride); (d) the roofline of Phase L's one-device step
-         beside its warm step.  Each phase prints its seconds ([time]).
+         beside its warm step.
+
+Phase Q  the four examples ported last, each through its `main` on the card
+         at the reference example's sizes, every launcher of the kernels
+         they reach capturing its first arguments at each new signature
+         (`Capture`), each captured launch then made again beside its plain
+         version (`hold_captured`).  (a) examples/torch_fleet_sim.py (512
+         packages x 4 tiles, 48 steps) on every backend, per step and
+         through `FleetEngine.run`: events 0, each backend's last
+         temperatures and frequencies within 1e-5 of broadcast's and its
+         records within the fleet gates, ms per step; `--stream` on fused
+         (exactly one `fleet_step` launch a 6-step chunk, one host sync a
+         flush) against the stream on broadcast; `--node n3` per step and
+         streamed on both.  (b) examples/torch_thermal_dashboard.py, every
+         panel's tensors on the card: α, β, R², the step response, Rth, η,
+         panel 5's released compute, peaks and traces within 1e-5 of the
+         same functions on the CPU on the same inputs; `--url`
+         against `serve_http` on a free port over a `FleetService` on
+         fused (two flushes, two launches).  (c) examples/torch_quickstart.py:
+         Effect ① as on the CPU on the same trace (1e-5), no V24 event,
+         finite losses, the flash launches of ten train steps exact by
+         route.  (d) examples/torch_serve_batched.py: flash and ssd launches
+         exact by route (one a layer a prefill), admissions as the CPU
+         run's.  Each phase prints its seconds ([time]).
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -407,7 +430,7 @@ FLEET_PREV_WINDOW_MS = {
 # fleet in 4 flushes
 SERVE_STREAM_ARGV = ["--stream", "--fleet", "4096", "--fleet-backend",
                      "fused", "--waves", "4", "--gen", "256"]
-SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
+SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "16",
               "--waves", "3", "--fleet", "64"]
 F32_CHECK = (2, 128)
 # Phase I: the paper's population (trials, steps, burn-in), the fleet-scale
@@ -505,6 +528,26 @@ def registers(name: str, kernel: str = "") -> str:
         if kernel in k)
 
 
+def compare(out, ref, where: str) -> float:
+    """`fleet_step`'s outputs vs its plain version's: max abs error of the
+    float planes (rtol = atol = 1e-5), events and latch exact."""
+    import torch
+
+    err = 0.0
+    for name, a, b in zip(("temps", "freqs", "ring", "poles"), out[:4],
+                          ref[:4]):
+        check(bool(torch.isfinite(a).all()), f"{where}: {name} not finite")
+        check(torch.allclose(a, b, **TOL),
+              f"{where}: {name} differs from the plain version by "
+              f"{float((a - b).abs().max()):.3e}")
+        err = max(err, float((a - b).abs().max()))
+    check(torch.equal(out[4], ref[4]), f"{where}: event counts differ "
+          f"({float(out[4].sum())} vs {float(ref[4].sum())})")
+    if ref[5] is not None:
+        check(torch.equal(out[5], ref[5]), f"{where}: latch differs")
+    return err
+
+
 def fleet_trace(n_tiles: int, n: int, steps: int):
     """The reference's fleet trace (examples/fleet_sim.py) as [T, n, tiles]
     f32 numpy: a diurnal swell over the paper's density domain plus
@@ -599,23 +642,6 @@ def main() -> None:
     print(f"[phase0] built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     print(f"[time] phase 0 {seconds['0']:.1f} s")
-
-    def compare(out, ref, where: str) -> float:
-        """Kernel outputs vs plain outputs: max abs error of the float
-        planes (rtol = atol = 1e-5), events and latch exact."""
-        err = 0.0
-        for name, a, b in zip(("temps", "freqs", "ring", "poles"), out[:4],
-                              ref[:4]):
-            check(bool(torch.isfinite(a).all()), f"{where}: {name} not finite")
-            check(torch.allclose(a, b, **TOL),
-                  f"{where}: {name} differs from the plain version by "
-                  f"{float((a - b).abs().max()):.3e}")
-            err = max(err, float((a - b).abs().max()))
-        check(torch.equal(out[4], ref[4]), f"{where}: event counts differ "
-              f"({float(out[4].sum())} vs {float(ref[4].sum())})")
-        if ref[5] is not None:
-            check(torch.equal(out[5], ref[5]), f"{where}: latch differs")
-        return err
 
     def throttled_share(d: dict) -> float:
         return d["throttled_mtps"] / (d["released_mtps"]
@@ -820,11 +846,12 @@ def main() -> None:
     fb_entries = run("L", phase_l, dev)
     mesh_entries = run("O", phase_o, dev, GEMMA_LOSS)
     run("P", phase_p, dev)
+    q_launches = run("Q", phase_q, dev)
     print(f"[time] phases " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()})
         + f"; the whole run {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "fleet_step",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_step.cu",
@@ -842,7 +869,12 @@ def main() -> None:
         **mesh_entry,
         **proc_entry,
     }, tc_entry, gc_entry, fa_entry, ssd_entry, fma_entry, *fb_entries,
-        *mesh_entries]}))
+        *mesh_entries]
+    for entry in entries:
+        entry["launches_phase_q"] = q_launches.get(entry["name"], 0)
+    fa_entry["launches_phase_q_cuda_core"] = \
+        q_launches["flash_attention_cuda_core"]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2004,7 +2036,7 @@ K_SERVE = (
     ("musicgen-large", None, [], 48, "tensor_core", 0),
     ("chameleon-34b", 24, [], 24, "tensor_core", 0),
     ("mixtral-8x7b", 8, ["--batch", "2", "--prompt-len", "4608", "--gen",
-                         "32"], 8, "tensor_core", 0),
+                         "16"], 8, "tensor_core", 0),
     ("deepseek-v2-236b", 4, ["--batch", "2", "--prompt-len", "1024",
                              "--gen", "16"], 4, "tensor_core", 0),
 )
@@ -3181,7 +3213,6 @@ def phase_l(dev) -> list:
     forward, RWKV6-1.6B's and the Zamba2-7B cut's gradients and their
     driver runs."""
     import dataclasses
-    import importlib.util
     import tempfile
 
     import numpy as np
@@ -3410,10 +3441,7 @@ def phase_l(dev) -> list:
     torch.cuda.empty_cache()
 
     # ---- (e) the 100M example in f32: the CUDA-core route both ways
-    spec = importlib.util.spec_from_file_location(
-        "torch_train_100m", ROOT / "examples" / "torch_train_100m.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_train_100m")
     L = example.config().n_layers
     n = int(EXAMPLE_ARGV[EXAMPLE_ARGV.index("--steps") + 1])
     fa.reset_launches()
@@ -4413,7 +4441,7 @@ def phase_n(dev, b_flushed, b_state, c_res, fused_ms: float) -> dict:
 # width and depth on (data 1, model 2): tensor parallelism, half of every
 # weight, moment and the vocabulary a rank
 MESH_TP = (1, 2)
-MESH_WARM_STEPS = 2
+MESH_WARM_STEPS = 1
 MESH_TILES = 8
 # (b) the reduced families on a 4-rank (data 2, model 2) mesh, f32: (arch,
 # widths, tp_attention, batch, seq); mixtral in the EP-only mode (its 4
@@ -4498,20 +4526,21 @@ def plain(key, a, k):
     return sm.ssd_backward_reference(*a, **k)
 
 
-CAPTURE = [False]
-CAPTURED = {}       # (kernel, local shape): the inputs it first met there
+# the same wrappers by module and name, for `cs.Capture`
+TARGETS = (("repro_torch.kernels.flash_attention", "flash_attention_stats",
+            "flash"),
+           ("repro_torch.kernels.flash_attention", "flash_attention_backward",
+            "flash_bwd"),
+           ("repro_torch.kernels.ssm_scan", "ssd_states", "ssd"),
+           ("repro_torch.kernels.ssm_scan", "ssd_backward", "ssd_bwd"))
 
 
 def seen(fn, key):
     # the wrapper takes the kernel wrapper's place and its launch counts
     @functools.wraps(fn)
     def wrapped(*a, **k):
-        at = (key, str(list(a[0].shape)) + " " + str(list(a[1].shape)[2:3])
-              + " " + str(a[0].dtype).split(".")[-1])
-        SHAPES[at] += 1
-        if CAPTURE[0] and at not in CAPTURED:
-            CAPTURED[at] = ([x.detach().clone() if torch.is_tensor(x) else x
-                             for x in a], dict(k))
+        SHAPES[(key, str(list(a[0].shape)) + " " + str(list(a[1].shape)[2:3])
+                + " " + str(a[0].dtype).split(".")[-1])] += 1
         return fn(*a, **k)
     return wrapped
 
@@ -4522,20 +4551,21 @@ sm.ssd_states = seen(WRAPPERS["ssd"], "ssd")
 sm.ssd_backward = seen(WRAPPERS["ssd_bwd"], "ssd_bwd")
 
 
-def hold_captured():
-    # each kernel launched again on the inputs it first met at each local
-    # shape of the mesh's run, beside its plain version: {kernel and
-    # shape: per output [max |kernel - plain|, max |plain|, dtype,
-    # finite]}; the launch counts are read before (these are not the
-    # mesh's)
+def hold_captured(cap):
+    # each kernel launched again on the inputs it first met at each
+    # signature of the mesh's run (`cs.Capture`), beside its plain
+    # version: {kernel and local shapes: per output [max |kernel - plain|,
+    # max |plain|, dtype, finite]}; the launch counts are read before
+    # (these are not the mesh's)
     out = {}
-    for (key, at), (a, k) in CAPTURED.items():
+    for i, (key, a, k) in enumerate(cap.replays()):
         got, want = WRAPPERS[key](*a, **k), plain(key, a, k)
-        out[f"{key} {at}"] = [None if w is None else [
-            float((g.float() - w.float()).abs().max()),
-            float(w.float().abs().max()), str(w.dtype).split(".")[-1],
-            bool(torch.isfinite(g).all())] for g, w in zip(got, want)]
-    CAPTURED.clear()
+        at = f"{key} {i}: " + " ".join(str(list(x.shape)) for x in a[:2])
+        out[at + " " + str(a[0].dtype).split(".")[-1]] = [
+            None if w is None else [
+                float((g.float() - w.float()).abs().max()),
+                float(w.float().abs().max()), str(w.dtype).split(".")[-1],
+                bool(torch.isfinite(g).all())] for g, w in zip(got, want)]
     return out
 
 
@@ -4549,15 +4579,6 @@ def reset():
     fa.reset_launches()
     sm.ssd.launches = sm.ssd_backward.launches = 0
     SHAPES.clear()
-
-
-def worst_leaf(got, want):
-    w = 0.0
-    for a, b in zip(got, want):
-        a, b = a.float(), b.float()
-        w = max(w, float((a - b).abs().max())
-                / max(float(b.abs().max()), 1e-30))
-    return w
 
 
 def local_of(grads, params, mesh, specs):
@@ -4602,7 +4623,7 @@ with shd.axis_env(mesh):
     sync()
     grads_s = time.perf_counter() - t0
     grad_launches = launches()
-    worst = worst_leaf([g.to_local() for g in g2], g1)
+    worst = cs.worst_leaf([g.to_local() for g in g2], g1)
     loss2 = float(shd.full(loss2))
     del g1, g2
     step = S.make_train_step(cfg, %(tiles)d, device=dev)
@@ -4666,20 +4687,19 @@ for arch, kw, tp, B, T in %(cases)r:
     dbatch = shd.distribute(batch, mesh, S.batch_shardings(cfg, shape, mesh))
     with shd.axis_env(mesh, tp_activations=tp):
         reset()
-        CAPTURE[0] = True
-        loss2, _, g2 = S.loss_and_grads(dstate.params, cfg, dbatch["tokens"],
-                                        dbatch["labels"])
-        dstate, m2 = S.make_train_step(cfg, %(tiles)d, device=dev)(
-            dstate, dbatch)
-        sync()
-        CAPTURE[0] = False
+        with cs.Capture(TARGETS) as cap:
+            loss2, _, g2 = S.loss_and_grads(dstate.params, cfg,
+                                            dbatch["tokens"], dbatch["labels"])
+            dstate, m2 = S.make_train_step(cfg, %(tiles)d, device=dev)(
+                dstate, dbatch)
+            sync()
     out["cases"][arch] = {
         "loss_one_device": float(loss1), "loss_mesh": float(shd.full(loss2)),
         "step_loss": [float(m1["loss"]), float(shd.full(m2["loss"]))],
-        "worst_leaf": worst_leaf([x.to_local() for x in g2], g1),
+        "worst_leaf": cs.worst_leaf([x.to_local() for x in g2], g1),
         "launches": launches(),
         "shapes": {f"{k} {s}": n for (k, s), n in SHAPES.items()}}
-    out["cases"][arch]["held"] = hold_captured()
+    out["cases"][arch]["held"] = hold_captured(cap)
 
 # (c) the error-feedback all-reduce over every rank ("data" of a 4 x 1 mesh)
 cmesh = M.make_test_mesh(data=dist.get_world_size(), model=1,
@@ -4976,8 +4996,8 @@ def phase_o(dev, l_loss: float | None) -> list:
               f"launches on rank 0 {json.dumps(c['launches'])} at the local "
               f"shapes {json.dumps(c['shapes'])}")
     print(f"[phaseO] (b) every kernel launched again on the inputs it first "
-          f"met at each local shape, on every rank, against its plain "
-          f"version: worst output within "
+          f"met at each signature (`Capture`), on every rank, against its "
+          f"plain version: worst output within "
           + ", ".join(f"{k} {v:.2e}" for k, v in sorted(held_rel.items()))
           + f" of its largest magnitude (bounds: flash "
           f"{FLASH_BWD_TOL['float32']}, ssd {SSD_BWD_TOL['float32']}, f32)")
@@ -5330,6 +5350,486 @@ def phase_p(dev) -> None:
           f"{rl['t_collective_s'] * 1e3:.2f} ms ({rl['bottleneck']}-bound); "
           f"measured warm step {step} (no gate)")
     print(f"[phaseP] phase P {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# Phase Q: the four examples ported last (examples/torch_fleet_sim.py,
+# torch_thermal_dashboard.py, torch_quickstart.py, torch_serve_batched.py),
+# each through its `main` at the reference example's sizes: (a)'s
+# backends, and the node bank it also streams
+Q_BACKENDS = ("broadcast", "fused", "vmap", "sharded", "sharded_fused")
+Q_NODE = "n3"
+# the launchers each kernel's wrapper reaches on a card, by module and
+# name, and the kernel each launches: Phase Q captures each one's first
+# arguments at each new signature of its inputs
+Q_LAUNCHERS = (("repro_torch", "_fma_plan", "fma_f32"),
+               ("repro_torch.fleet.backends.fused", "fleet_step",
+                "fleet_step"),
+               ("repro_torch.kernels.flash_attention", "_launch",
+                "flash_attention"),
+               ("repro_torch.kernels.flash_attention", "_launch_tc",
+                "flash_attention_tc"),
+               ("repro_torch.kernels.flash_attention", "_launch_bwd",
+                "flash_attention_backward"),
+               ("repro_torch.kernels.flash_attention", "_launch_bwd_tc",
+                "flash_attention_bwd_tc"),
+               ("repro_torch.kernels.ssm_scan", "_launch", "ssd"))
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def signature(x):
+    """What makes a launch new: each tensor's shape, dtype, strides and
+    data pointer modulo 16 bytes, every other argument's value (a float's
+    type only: fma_f32's scalar operands)."""
+    import torch
+
+    if torch.is_tensor(x):
+        return (tuple(x.shape), str(x.dtype), x.stride(), x.data_ptr() % 16)
+    if type(x) in (tuple, list):
+        return tuple(signature(y) for y in x)
+    return "float" if isinstance(x, float) else repr(x)
+
+
+def clone_args(x):
+    """``x`` with each tensor copied into new memory at its own shape,
+    strides and data pointer modulo 256 bytes: a view copies the span of
+    storage it covers, so a launch on the copy meets the layout the
+    captured launch met."""
+    import torch
+
+    if type(x) in (tuple, list):
+        return type(x)(clone_args(y) for y in x)
+    if not torch.is_tensor(x):
+        return x
+    x = x.detach()
+    if x.numel() == 0:
+        return x.clone()
+    span = 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride()))
+    at = x.data_ptr() % 256 // x.element_size()
+    buf = torch.empty(at + span, dtype=x.dtype, device=x.device)
+    buf[at:] = x.as_strided((span,), (1,), x.storage_offset())
+    return buf.as_strided(x.shape, x.stride(), at)
+
+
+class Capture:
+    """Within the context every (module, name, kernel) of ``targets`` is
+    wrapped: the arguments it first met at each new signature, cloned
+    before the call (``first``: (kernel, signature) -> (args, kwargs)).
+    Phase Q wraps the kernels' launchers (`Q_LAUNCHERS`), Phase O (b)'s
+    ranks the public wrappers; the launch counts are untouched (each lives
+    on the kernel's public wrapper)."""
+
+    def __init__(self, targets=Q_LAUNCHERS):
+        self.targets, self.first, self._saved = targets, {}, []
+
+    def _wrap(self, orig, kernel):
+        first = self.first
+
+        class Wrapped:
+            # a call captures, then calls ``orig``; every attribute is
+            # ``orig``'s (a wrapper's launch counts go on counting there)
+            def __call__(self, *a, **k):
+                key = (kernel, signature(a) + signature(sorted(k.items())))
+                if key not in first:
+                    first[key] = (clone_args(a),
+                                  {n: clone_args(v) for n, v in k.items()})
+                return orig(*a, **k)
+
+            def __getattr__(self, name):
+                return getattr(orig, name)
+
+            def __setattr__(self, name, value):
+                setattr(orig, name, value)
+
+        return Wrapped()
+
+    def replays(self):
+        """(kernel, args, kwargs) of each capture, each copy's signature
+        checked equal to the launch's it was captured from."""
+        for (kernel, sig), (a, k) in self.first.items():
+            check(signature(a) + signature(sorted(k.items())) == sig,
+                  f"{kernel}: the captured copy's layout differs from the "
+                  f"launch's")
+            yield kernel, a, k
+
+    def __enter__(self):
+        import importlib
+
+        for mod_name, attr, kernel in self.targets:
+            mod = importlib.import_module(mod_name)
+            orig = getattr(mod, attr)
+            self._saved.append((mod, attr, orig))
+            setattr(mod, attr, self._wrap(orig, kernel))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in reversed(self._saved):
+            setattr(mod, attr, orig)
+        self._saved.clear()
+
+
+def worst_leaf(got, want) -> float:
+    """The largest |got − want| of the tensors, each over its ``want``'s
+    largest magnitude."""
+    w = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        w = max(w, float((a - b).abs().max())
+                / max(float(b.abs().max()), 1e-30))
+    return w
+
+
+def hold_captured(cap: Capture, where: str) -> dict:
+    """Each captured launch made again beside its kernel's plain version
+    on the same inputs (these launches are not the path's: counts are read
+    before): fma_f32 bit for bit, fleet_step by ``compare`` (traces and
+    state 1e-5, events and latch exact), the flash forward within
+    FLASH_FWD_ATOL (Phase G's bounds) with its statistics, the flash
+    backward within FLASH_BWD_TOL of each gradient's largest magnitude,
+    ssd within 3e-5 (the reference kernel test's bound).  Returns {kernel:
+    [signatures held, worst error]}."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.kernels import ssm_scan as sm
+
+    held = {}
+    for kernel, a, k in cap.replays():
+        shapes = [list(t.shape) for t in a[:4] if torch.is_tensor(t)]
+        at = f"{where}: {kernel} at {shapes}"
+        if kernel == "fma_f32":
+            check(torch.equal(repro_torch.fma_f32(*a),
+                              repro_torch.fma_f32_reference(*a)),
+                  f"{at}: not bit-equal to the plain version")
+            err = 0.0
+        elif kernel == "fleet_step":
+            err = compare(fs.fleet_step(*a, **k),
+                          fs.fleet_step_reference(*a, **k), at)
+        elif kernel in ("flash_attention", "flash_attention_tc"):
+            q, kk, v, causal, window, q_offset, scale = a[:7]
+            kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      scale=scale)
+            launch = fa._launch if kernel == "flash_attention" else \
+                fa._launch_tc
+            got = launch(*a, **k)
+            if k.get("stats", False):
+                o, m, l = fa.flash_attention_stats_reference(q, kk, v, **kw)
+                want = (o.to(q.dtype), o, m, l)
+            else:
+                got, want = (got,), (fa.flash_attention_reference(
+                    q, kk, v, **kw),)
+            err = max_err(got, want, at,
+                          atol=FLASH_FWD_ATOL[str(q.dtype).split(".")[-1]])
+        elif kernel in ("flash_attention_backward",
+                        "flash_attention_bwd_tc"):
+            q, kk, v, o, m, l, do, causal, window, q_offset, scale = a
+            launch = fa._launch_bwd if kernel == "flash_attention_backward" \
+                else fa._launch_bwd_tc
+            got = launch(*a)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{at}: not finite")
+            err = worst_leaf(got, fa.flash_attention_backward_reference(
+                q, kk, v, o, m, l, do, causal=causal, window=window,
+                q_offset=q_offset, scale=scale))
+            tol = FLASH_BWD_TOL[str(q.dtype).split(".")[-1]]
+            check(err <= tol, f"{at}: {err:.3e} of the largest gradient")
+        else:
+            d, b, x, c, u, h0, ck, inc = a
+            err = max_err(sm._launch(*a, **k), sm.ssd_reference(
+                d, b, x, c, u=u, h0=h0, chunk=ck, include_current=inc,
+                states=k.get("states", False)), at, rtol=3e-5, atol=3e-5)
+        n, worst = held.get(kernel, (0, 0.0))
+        held[kernel] = (n + 1, max(worst, err))
+    return held
+
+
+def q_reset() -> None:
+    """Every launch count Phase Q reads set to 0."""
+    import repro_torch
+    from repro_torch.kernels import fleet_step as fs
+
+    reset_train_launches()
+    fs.fleet_step.launches = 0
+    repro_torch.fma_f32.launches = 0
+
+
+def q_counts() -> dict:
+    """The launch counts since `q_reset`: fleet_step, fma_f32, the flash
+    forward and backward by route, ssd and its backward."""
+    import repro_torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.kernels import ssm_scan as sm
+
+    return {"fleet_step": fs.fleet_step.launches,
+            "fma_f32": repro_torch.fma_f32.launches,
+            "flash": dict(fa.flash_attention.launches_by_route),
+            "flash_bwd": dict(fa.flash_attention_backward.launches_by_route),
+            "ssd": sm.ssd.launches, "ssd_bwd": sm.ssd_backward.launches}
+
+
+def phase_q(dev) -> dict:
+    """The four examples on the card, each through its `main` at the
+    reference example's sizes, with every kernel it launched held to its
+    plain version on the inputs it first met at each shape.  Returns the
+    launches of the examples' runs by kernel (the kernels line's
+    ``launches_phase_q``)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dataset90k, pdu_gate, thermal
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.fleet import FleetService, serve_http
+    from repro_torch.kernels.flash_attention import flash_route
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    held = {}
+
+    def add(c: dict) -> dict:
+        for k, v in c.items():
+            if isinstance(v, dict):
+                for route, n in v.items():
+                    total[f"{k}_{route}"] += n
+            else:
+                total[k] += v
+        return c
+
+    def hold(cap: Capture, where: str) -> None:
+        for kernel, (n, err) in hold_captured(cap, where).items():
+            m, worst = held.get(kernel, (0, 0.0))
+            held[kernel] = (m + n, max(worst, err))
+
+    # ---- (a) torch_fleet_sim: every backend, the stream, a node bank
+    t0 = time.perf_counter()
+    ex = load_example("torch_fleet_sim")
+    chunks = -(-ex.STEPS // ex.FLUSH)
+    runs = {}
+    with Capture() as cap:
+        for backend in Q_BACKENDS:
+            q_reset()
+            res = runs[backend] = ex.main(["--backend", backend])
+            c = add(q_counts())
+            # the per-step loop runs the scheduler's update on every
+            # backend (fused's window kernel serves whole chunks)
+            check(c["fma_f32"] > 0 and c["fleet_step"] == 0,
+                  f"phase Q (a) {backend}: launches {c}")
+            check(res["events"] == res["run_events"] == 0,
+                  f"phase Q (a) {backend}: events {res['events']} per "
+                  f"step, {res['run_events']} by the runner")
+            print(f"[phaseQ] (a) torch_fleet_sim --backend {backend}: "
+                  f"{res['ms_per_step']:.3f} ms per step (host clock, "
+                  f"synchronized; {ex.N_PACKAGES} packages x {ex.N_TILES} "
+                  f"tiles), {c['fma_f32']} fma_f32 launches over "
+                  f"{2 * ex.STEPS} steps, events 0, final p99 "
+                  f"{res['records'][ex.STEPS - 1]['temp_p99_c']:.3f} C, "
+                  f"runner peak p99 {res['run_peak_p99']:.3f} C")
+        base = runs["broadcast"]
+        worst = 0.0
+        for backend, res in runs.items():
+            err = max_err((res["temps"], res["freqs"]),
+                          (base["temps"], base["freqs"]),
+                          f"phase Q (a) {backend} vs broadcast")
+            for i, d in res["records"].items():
+                telemetry_gate(d, base["records"][i],
+                               f"phase Q (a) {backend} step {i}")
+            worst = max(worst, err)
+        print(f"[phaseQ] (a) every backend's last temperatures and "
+              f"frequencies within {worst:.3e} of broadcast's, its printed "
+              f"records within the fleet gates")
+        streams = {}
+        for tag, argv in (("fused", ["--backend", "fused"]),
+                          ("broadcast", []),
+                          (f"{Q_NODE} fused", ["--node", Q_NODE,
+                                               "--backend", "fused"]),
+                          (f"{Q_NODE} broadcast", ["--node", Q_NODE])):
+            q_reset()
+            res = streams[tag] = ex.main(argv + ["--stream"])
+            c = add(q_counts())
+            want = chunks if "fused" in tag else 0
+            check(c["fleet_step"] == want and res["flushes"] == chunks
+                  and res["host_syncs"] == res["flushes"],
+                  f"phase Q (a) --stream {tag}: {c['fleet_step']} "
+                  f"fleet_step launches (want {want}), {res['flushes']} "
+                  f"flushes, {res['host_syncs']} host syncs")
+            print(f"[phaseQ] (a) torch_fleet_sim --stream {tag}: "
+                  f"{res['ms_per_step']:.3f} ms per step, "
+                  f"{c['fleet_step']} fleet_step launches in "
+                  f"{res['flushes']} flushes, {res['host_syncs']} host "
+                  f"syncs, events {res['events']}")
+        check(streams["fused"]["events"] == 0, "phase Q (a): the stream "
+              "tripped a thermal event")
+        for tag in ("fused", f"{Q_NODE} fused"):
+            other = tag.replace("fused", "broadcast")
+            for i, (d, w) in enumerate(zip(streams[tag]["flushed"],
+                                           streams[other]["flushed"])):
+                telemetry_gate(d, w, f"phase Q (a) --stream {tag} flush "
+                               f"{i + 1} vs {other}")
+        q_reset()
+        node = ex.main(["--node", Q_NODE])
+        add(q_counts())
+        check(node["events"] == node["run_events"]
+              == streams[f"{Q_NODE} fused"]["events"],
+              f"phase Q (a) --node {Q_NODE}: events {node['events']} per "
+              f"step, {node['run_events']} by the runner, "
+              f"{streams[f'{Q_NODE} fused']['events']} streamed")
+    hold(cap, "phase Q (a)")
+    print(f"[phaseQ] (a) --node {Q_NODE}: {node['events']} events per "
+          f"step, by the runner and streamed on fused and broadcast; "
+          f"streamed records of fused within the fleet gates of "
+          f"broadcast's; {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) torch_thermal_dashboard: the local panels, then --url
+    t0 = time.perf_counter()
+    ex = load_example("torch_thermal_dashboard")
+    q_reset()
+    with Capture() as cap:
+        res = ex.main([])
+    c = add(q_counts())
+    check(c["fma_f32"] > 0, f"phase Q (b): launches {c}")
+    t = res["dataset"]
+    check(all(x.device.type == "cuda" for x in (
+        t.rtok, res["trace"], res["step_response"], res["eta"])),
+          "phase Q (b): a panel did not run on the card")
+    a, b, r2 = dataset90k.fit_affine(t.rtok.cpu(), t.dt_junction.cpu())
+    sr = thermal.step_response(thermal.single_pole(), 400, 100.0)
+    max_err(res["step_response"].cpu(), sr, "phase Q (b) panel 2's step "
+            "response vs the CPU")
+    p5 = ex.panel5(res["trace"].cpu())
+    cpu = {"alpha": a, "beta": b, "r2": r2, "rth": float(sr[-1]) / 100.0,
+           "eta20": float(pdu_gate.eta(20.)),
+           "eta50": float(pdu_gate.eta(50.)), "released": p5["released"],
+           "peak_v24": p5["peak_v24"], "peak_base": p5["peak_base"]}
+    for k, w in cpu.items():
+        check(abs(res[k] - w) <= 1e-5 + 1e-5 * abs(w),
+              f"phase Q (b): {k} {res[k]} on the card, {w} on the CPU")
+    err = max_err([res[k].cpu() for k in ("t_v24", "f_v24", "t_base",
+                                          "f_base")],
+                  [p5[k] for k in ("t_v24", "f_v24", "t_base", "f_base")],
+                  "phase Q (b) panel 5 traces vs the CPU")
+    print(f"[phaseQ] (b) torch_thermal_dashboard: alpha {res['alpha']:.4f} "
+          f"beta {res['beta']:.3f} R2 {res['r2']:.6f} Rth {res['rth']:.5f} "
+          f"eta {res['eta20']:.6f} / {res['eta50']:.6f}, released "
+          f"{res['released']:.6f}, peaks {res['peak_v24']:.3f} / "
+          f"{res['peak_base']:.3f} C, each within 1e-5 of the same "
+          f"functions on the CPU on the same inputs (panel 5's traces "
+          f"within {err:.3e}); {c['fma_f32']} fma_f32 launches")
+    svc = FleetService(SchedulerConfig(n_tiles=4),
+                       backend="fused", min_capacity=4, flush_every=8,
+                       device=dev)
+    for i in range(3):
+        svc.attach(f"q{i}", tenant="acme")
+    q_reset()
+    with Capture() as cap2:
+        for _ in range(2):
+            svc.tick()
+    c = add(q_counts())
+    check(c["fleet_step"] == 2, f"phase Q (b): the control plane's two "
+          f"flushes launched fleet_step {c['fleet_step']} times")
+    server, thread = serve_http(svc, port=0)
+    try:
+        live = ex.main(["--url",
+                        f"http://127.0.0.1:{server.server_address[1]}"])
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+    check(len(live["records"]) == 2, f"phase Q (b) --url: "
+          f"{len(live['records'])} flush records rendered, want 2")
+    hold(cap, "phase Q (b)")
+    hold(cap2, "phase Q (b) control plane")
+    print(f"[phaseQ] (b) --url against serve_http on port "
+          f"{server.server_address[1]} (FleetService on fused, 3 packages, "
+          f"2 flushes, 2 fleet_step launches): rendered "
+          f"{len(live['records'])} flush records; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) torch_quickstart: Effect ① and the training loop
+    t0 = time.perf_counter()
+    ex = load_example("torch_quickstart")
+    cfg = ex.train_config()
+    dt = getattr(torch, cfg.dtype)
+    route = flash_route("cuda", dt, dt, cfg.head_dim, cfg.head_dim)
+    q_reset()
+    with Capture() as cap:
+        res = ex.main([])
+    got = check_train_launches(cfg, route, ex.TRAIN_STEPS,
+                               "phase Q (c) torch_quickstart")
+    c = add(q_counts())
+    check(res["v24_events"] == 0 and res["train_events"] == 0
+          and all(np.isfinite(res["losses"])),
+          f"phase Q (c): V24 events {res['v24_events']}, train events "
+          f"{res['train_events']}, losses {res['losses']}")
+    check(res["trace"].device.type == "cuda", "phase Q (c): the trace is "
+          "not on the card")
+    e = ex.effect_one(res["trace"].cpu())
+    for k, w in e.items():
+        check(abs(res[k] - w) <= 1e-5 + 1e-5 * abs(w),
+              f"phase Q (c): {k} {res[k]} on the card, {w} on the CPU")
+    hold(cap, "phase Q (c)")
+    print(f"[phaseQ] (c) torch_quickstart: released {res['released']:.6f}, "
+          f"perf {res['base_perf']:.6f} -> {res['v24_perf']:.6f}, peak "
+          f"{res['base_peak']:.3f} -> {res['v24_peak']:.3f} C, events "
+          f"{res['base_events']} -> 0, each as on the CPU on the same "
+          f"trace (1e-5); losses {json.dumps([round(x, 4) for x in res['losses']])}; "
+          f"flash {got['flash']} forward and {got['flash_bwd']} backward "
+          f"launches on the {route} route, {c['fma_f32']} fma_f32; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) torch_serve_batched: the three scenarios
+    t0 = time.perf_counter()
+    ex = load_example("torch_serve_batched")
+    from repro_torch.configs import get_arch, reduced
+    want = {"flash": 0, "ssd": 0}
+    for argv in ex.SCENARIOS.values():
+        arg = lambda k: argv[argv.index(k) + 1]
+        scfg = reduced(get_arch(arg("--arch")))
+        kind = "ssd" if scfg.family == "ssm" else "flash"
+        want[kind] += scfg.n_layers * int(arg("--waves"))
+    q_reset()
+    with Capture() as cap:
+        res = ex.main([])
+    c = add(q_counts())
+    froute = flash_route("cuda", torch.float32, torch.float32, 32, 32)
+    check(c["flash"][froute] == sum(c["flash"].values()) == want["flash"]
+          and c["ssd"] == want["ssd"] and sum(c["flash_bwd"].values()) == 0,
+          f"phase Q (d): launches {c}, want flash {want['flash']} on the "
+          f"{froute} route and ssd {want['ssd']} (one a layer a prefill)")
+    ref = ex.main(["--device", "cpu"])
+    for name in ("mixtral", "rwkv6", "fleet"):
+        check(res[name]["admitted"] == ref[name]["admitted"],
+              f"phase Q (d) {name}: admissions {res[name]['admitted']} on "
+              f"the card, {ref[name]['admitted']} on the CPU")
+    hold(cap, "phase Q (d)")
+    print(f"[phaseQ] (d) torch_serve_batched: admissions "
+          f"{json.dumps({k: v['admitted'] for k, v in res.items()})} as on "
+          f"the CPU; {c['flash'][froute]} flash launches on the {froute} "
+          f"route, {c['ssd']} ssd; p50 / p99 ms "
+          f"{json.dumps({k: [round(v['p50'] * 1e3, 2), round(v['p99'] * 1e3, 2)] for k, v in res.items()})}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("[phaseQ] each kernel launched again on the inputs it first met "
+          "at each signature, beside its plain version: " + json.dumps(
+              {k: {"held": n, "max_err": e} for k, (n, e) in held.items()}))
+    print(f"[phaseQ] phase Q {time.perf_counter() - t_phase:.1f} s")
+    return {"fleet_step": total["fleet_step"], "fma_f32": total["fma_f32"],
+            "flash_attention": total["flash_tensor_core"],
+            "flash_attention_cuda_core": total["flash_cuda_core"],
+            "flash_attention_bwd_tc": total["flash_bwd_tensor_core"],
+            "flash_attention_backward": total["flash_bwd_cuda_core"],
+            "ssd": total["ssd"], "ssd_backward": total["ssd_bwd"]}
 
 
 if __name__ == "__main__":

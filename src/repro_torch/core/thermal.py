@@ -148,8 +148,10 @@ def direct_convolution(poles: PoleParams, power_trace,
     return out
 
 
-def step_response(poles: PoleParams, n_steps: int,
-                  power_w: float = 1.0) -> torch.Tensor:
-    """ΔT trace for a unit power step — τ validation: 63.2 % at t = τ (§4.1)."""
-    dts, _ = simulate(poles, torch.full((n_steps, 1), power_w))
+def step_response(poles: PoleParams, n_steps: int, power_w: float = 1.0,
+                  device=None) -> torch.Tensor:
+    """ΔT trace for a unit power step — τ validation: 63.2 % at t = τ (§4.1).
+    Runs on ``device`` (the CPU if None)."""
+    dts, _ = simulate(poles, torch.full((n_steps, 1), power_w,
+                                        device=device))
     return dts[:, 0]

@@ -118,13 +118,15 @@ MESH_AXES = {"2x4": ((2, 4), ("data", "model")),
              "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 
 
-# the families each process runs: the reduced configs share most shapes,
-# and DTensor caches each op's placement by its shapes, so on two axes
-# families share a process; on three a family's first train step costs
-# ~17 s of placement search on the CPU and its first decode ~9 s, which a
-# shared cache cuts by little, so each family has a process of its own
-GROUPS = {"2x4": (("dense", "moe", "stub"), ("mla", "ssm", "hybrid")),
-          "2x2x2": tuple((f,) for f in sorted(FAMILIES))}
+# the (mesh, families) each process runs.  DTensor caches each op's
+# placement strategies by its shapes, and the reduced configs share most
+# shapes, so a family's first step on a mesh makes the next families'
+# steps there cheap (one process on 2×4 runs all six); on three axes a
+# cold train step costs ~17 s of placement search on the CPU and a cold
+# decode ~9 s, and the MLA and hybrid families share fewest shapes with
+# the rest, so the three-axis mesh has three processes
+GROUPS = (("2x2x2", ("dense", "stub", "moe")), ("2x2x2", ("mla",)),
+          ("2x2x2", ("ssm", "hybrid")), ("2x4", tuple(FAMILIES)))
 
 
 @pytest.fixture(scope="module")
@@ -132,13 +134,12 @@ def workers():
     """The fake-group runs, all started together."""
     procs = [_start(f"ARCHS = {BYTES_ARCHS!r}\nLAYERS = {BYTES_LAYERS}\n"
                     + BYTES_WORKER)]
-    for mesh, groups in GROUPS.items():
+    for mesh, fams in GROUPS:
         shape, names = MESH_AXES[mesh]
-        for fams in groups:
-            procs.append(_start(
-                f"FAMILIES = {({f: FAMILIES[f] for f in fams})!r}\n"
-                f"MESH = {mesh!r}\nSHAPE = {shape!r}\nNAMES = {names!r}\n"
-                + CELLS_WORKER))
+        procs.append(_start(
+            f"FAMILIES = {({f: FAMILIES[f] for f in fams})!r}\n"
+            f"MESH = {mesh!r}\nSHAPE = {shape!r}\nNAMES = {names!r}\n"
+            + CELLS_WORKER))
     out = {"bytes": _result(procs[0])}
     for proc in procs[1:]:
         out.update(_result(proc))

@@ -33,6 +33,7 @@ def _imported_modules(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_multi_tile_sim.py",
     ROOT / "scripts" / "kernel_ab.py",
+    ROOT / "scripts" / "phase_ab.py",
     ROOT / "scripts" / "thermal_conv_limits.py",
     ROOT / "scripts" / "ssd_train_limits.py",
     ROOT / "scripts" / "flash_variants.py",
@@ -40,7 +41,11 @@ def _imported_modules(path: Path) -> set[str]:
     ROOT / "scripts" / "collective_probe.py",
     ROOT / "scripts" / "train_loss_bits.py",
     ROOT / "examples" / "torch_broadcast_step.py",
-    ROOT / "examples" / "torch_train_100m.py"],
+    ROOT / "examples" / "torch_train_100m.py",
+    ROOT / "examples" / "torch_fleet_sim.py",
+    ROOT / "examples" / "torch_thermal_dashboard.py",
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_serve_batched.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = sorted(m for m in _imported_modules(path)
